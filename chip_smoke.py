@@ -6,8 +6,12 @@ Phases, in order; each raises on failure and nothing is caught:
 
 1. build   -- compile every CUDA source of the port with nvcc.
 2. kernels -- hold each kernel against its plain PyTorch version on the card
-              (TF32 off), at the shapes of the BP path and at ragged shapes,
-              and time kernel, plain version and the PyTorch library call.
+              (TF32 off), at the shapes of the BP path, at ragged shapes and
+              at Dk = 128, with q, k, v position-major (contiguous (B, N, C))
+              and channel-major (transpose views of (B, C, N), the layout
+              the model passes, with a channel-major result; the kernel
+              reads it with no copy), and time kernel, plain version and
+              the PyTorch library call.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -21,6 +25,12 @@ Phases, in order; each raises on failure and nothing is caught:
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
 non-zero without a result when no CUDA device is present.
+
+    python3 chip_smoke.py --profile-only
+
+builds the kernels and runs only phase 3's profile (the device time of a BP
+forward by kernel group); run from another checkout of the repo, it profiles
+that checkout's package, so two versions compare with one script.
 """
 
 import contextlib
@@ -36,15 +46,23 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA's data-sheet peaks for one H100 SXM (dense): f32 outside the tensor
-# cores, and HBM3 bandwidth. They assume the card's full 700 W power limit.
+# cores, TF32 on the tensor cores, and HBM3 bandwidth. They assume the card's
+# full 700 W power limit.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# The attention kernel's engine, its one path: TF32 tensor cores in three
+# passes (big*big + big*small + small*big), wgmma for P.V and mma.sync for the
+# scores, K and V loaded by the TMA engine.
+ENGINE = "wgmma m64n120k8 + mma.sync m16n8k8, tf32x3"
+TF32_PASSES = 3
 
 # (B, N, Dk, Dv) of the BP attention (models/bp.py: 2048 embedding dims as
 # positions, 720 points as channels, q/k reduced 8x) and the ragged shapes.
 BP_SHAPE = (4, 2048, 90, 720)
 RAGGED = [(2, 64, 4, 32), (2, 100, 8, 16), (2, 256, 16, 128), (2, 333, 5, 7),
-          (2, 2049, 90, 720)]
+          (2, 2049, 90, 720), (2, 2049, 5, 7)]
+DK_MAX = [(2, 300, 128, 200), (1, 2048, 128, 720)]  # the kernel's largest Dk
 # f32: the kernel and the plain version both compute in f32 and differ only in
 # summation order. bf16: both widen the inputs to f32 and round only the
 # output, so they differ by up to one bf16 rounding (2^-8 relative) plus
@@ -96,16 +114,56 @@ def phase_build() -> None:
     for name, r in report.items():
         print(f"[build] {name}: {r['seconds']:.1f} s")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 print(f"[build]   {line.strip()}")
 
 
-def _qkv(shape, dtype, seed, q_scale=1.0):
+def _qkv(shape, dtype, seed, q_scale=1.0, layout="nc"):
+    """Seeded q, k, v of shape (B, N, C). layout is one letter per tensor:
+    'n' position-major (contiguous (B, N, C)), 'c' channel-major (the
+    transpose view of a contiguous (B, C, N)); one letter stands for all three."""
     b, n, dk, dv = shape
+    layout = layout * 3 if len(layout) == 1 else layout
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k = (torch.randn(b, n, dk, generator=g, device="cuda") for _ in range(2))
     v = torch.randn(b, n, dv, generator=g, device="cuda")
-    return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+    out = []
+    for t, form in zip(((q * q_scale), k, v), layout):
+        t = t.to(dtype)
+        out.append(t if form == "n" else t.transpose(1, 2).contiguous().transpose(1, 2))
+    return tuple(out)
+
+
+def _check_case(shape, dtype, layout, q_scale, seed) -> float:
+    """The kernel against the plain version on one case; returns the max abs
+    error. Channel-major inputs go through spatial_self_attention, whose
+    result must be channel-major too."""
+    from vaeplay_torch.ops import attention
+
+    q, k, v = _qkv(shape, dtype, seed, q_scale, layout)
+    if shape == BP_SHAPE and dtype == torch.float32 and layout == "c" and not (
+            attention._tma_operand(k) is k and attention._tma_operand(v) is v):
+        raise AssertionError("the model's layout at the BP shape was copied for the kernel")
+    if layout == "c":
+        got = attention.spatial_self_attention(q, k, v)
+        if not got.transpose(1, 2).is_contiguous():
+            raise AssertionError(f"channel-major inputs gave strides {got.stride()}")
+    else:
+        got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.reference_attention(q, k, v)
+    atol, rtol = TOL[dtype]
+    err = (got.float() - ref.float()).abs()
+    bad = int((err > atol + rtol * ref.float().abs()).sum())
+    max_err = float(err.max())
+    rel = max_err / max(float(ref.float().abs().max()), 1e-30)
+    print(f"[kernels] flash_attention_fwd B,N,Dk,Dv={shape} {str(dtype)[6:]} layout {layout}: "
+          f"max abs err {max_err:.3e}, max rel err {rel:.3e} "
+          f"(atol {atol:g}, rtol {rtol:g}), {bad} outside")
+    if got.shape != ref.shape or bad or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention_fwd disagrees with the plain version at "
+                             f"{shape} {dtype} layout {layout}")
+    return max_err
 
 
 def phase_kernels(gpu: str) -> dict:
@@ -113,46 +171,57 @@ def phase_kernels(gpu: str) -> dict:
 
     # BP's shape with unit-variance inputs (a peaked softmax), the ragged
     # shapes with q scaled down: a flat softmax, where a padded key column
-    # that escaped the mask would carry as much weight as a real one
-    cases = [(BP_SHAPE, torch.float32, 1.0), (BP_SHAPE, torch.bfloat16, 1.0)]
-    cases += [(s, torch.float32, 0.05) for s in RAGGED]
+    # that escaped the mask would carry as much weight as a real one. Layout
+    # 'n' is position-major, 'c' channel-major (the model's), 'ncn' and 'cnc'
+    # mix the two (q, k, v in turn).
+    cases = [(BP_SHAPE, torch.float32, 1.0, "n"), (BP_SHAPE, torch.bfloat16, 1.0, "n")]
+    cases += [(s, torch.float32, 0.05, "n") for s in RAGGED]
+    cases += [(BP_SHAPE, torch.float32, 1.0, "c"), (BP_SHAPE, torch.bfloat16, 1.0, "c")]
+    cases += [(s, torch.float32, 0.05, "c") for s in RAGGED]
+    cases += [(s, torch.bfloat16, 0.05, "c") for s in RAGGED[3:]]
+    cases += [(s, torch.float32, 0.05, lay) for s in DK_MAX for lay in ("n", "c")]
+    cases += [(RAGGED[3], torch.float32, 0.05, "ncn"), (RAGGED[4], torch.float32, 0.05, "cnc")]
     bp_err = None
-    for i, (shape, dtype, q_scale) in enumerate(cases):
-        q, k, v = _qkv(shape, dtype, seed=i, q_scale=q_scale)
-        got = attention.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = attention.reference_attention(q, k, v)
-        atol, rtol = TOL[dtype]
-        err = (got.float() - ref.float()).abs()
-        bad = int((err > atol + rtol * ref.float().abs()).sum())
-        max_err = float(err.max())
-        rel = max_err / max(float(ref.float().abs().max()), 1e-30)
-        print(f"[kernels] flash_attention_fwd B,N,Dk,Dv={shape} {str(dtype)[6:]}: "
-              f"max abs err {max_err:.3e}, max rel err {rel:.3e} "
-              f"(atol {atol:g}, rtol {rtol:g}), {bad} outside")
-        if bad or not torch.isfinite(got).all():
-            raise AssertionError(f"flash_attention_fwd disagrees with the plain version at {shape} {dtype}")
-        if shape == BP_SHAPE and dtype == torch.float32:
-            bp_err = max_err
+    for i, (shape, dtype, q_scale, layout) in enumerate(cases):
+        err = _check_case(shape, dtype, layout, q_scale, seed=i)
+        if shape == BP_SHAPE and dtype == torch.float32 and layout == "c":
+            bp_err = err
 
+    # timed at the BP shape in f32, channel-major as the model passes them
+    # (kernel, plain version and library call on the same views), and
+    # position-major for comparison (there flash_attention copies k and v
+    # into the kernel's layout first)
     b, n, dk, dv = BP_SHAPE
-    q, k, v = _qkv(BP_SHAPE, torch.float32, seed=0)
-    ms = cuda_ms(lambda: attention.flash_attention(q, k, v))
-    plain_ms = cuda_ms(lambda: attention.reference_attention(q, k, v))
-    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, scale=1.0))
+    times = {}
+    for layout in ("c", "n"):
+        q, k, v = _qkv(BP_SHAPE, torch.float32, seed=0, layout=layout)
+        out = (torch.empty(b, dv, n, device="cuda").transpose(1, 2) if layout == "c"
+               else torch.empty(b, n, dv, device="cuda"))
+        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+        times[layout] = (
+            cuda_ms(lambda: attention.flash_attention(q, k, v, out=out)),
+            cuda_ms(lambda: attention.reference_attention(q, k, v)),
+            cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0)))
+    ms, plain_ms, library_ms = times["c"]
     flops = 2.0 * b * n * n * (dk + dv)
     nbytes = 4.0 * (2 * b * n * dk + 2 * b * n * dv)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    t_cuda_core = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
-    print(f"[kernels] BP shape f32 on {gpu}: kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-          f"library_ms {library_ms:.4f}, bound_ms {bound_ms:.4f} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
-          f"kernel at {flops / ms / 1e9:.1f} TFLOP/s)")
+    print(f"[kernels] BP shape f32, channel-major, on {gpu}: kernel_ms {ms:.4f}, "
+          f"plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f}, bound_ms {bound_ms:.4f} "
+          f"({TF32_PASSES} x {flops / 1e9:.2f} GFLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s "
+          f"TF32; {nbytes / 1e6:.1f} MB), bound_f32_cuda_core_ms {t_cuda_core:.4f}; "
+          f"kernel at {flops / ms / 1e9:.1f} TFLOP/s counted once, "
+          f"{bound_ms / ms:.1%} of its bound")
+    print(f"[kernels] BP shape f32, position-major, on {gpu}: flash_attention_ms "
+          f"(copies of k and v, then the kernel) {times['n'][0]:.4f}, "
+          f"plain_ms {times['n'][1]:.4f}, library_ms {times['n'][2]:.4f}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "vaeplay_torch/ops/csrc/flash_attention.cu",
-            "replaces": "vaeplay_tpu/ops/attention.py:37",
+            "replaces": "vaeplay_tpu/ops/attention.py:37", "engine": ENGINE,
             "launches": None, "max_abs_err": bp_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
@@ -231,6 +300,9 @@ def _profile(model, imgs, dev, forwards: int = 3) -> None:
         name = e.key
         group = ("attention kernel" if "flash_attention" in name
                  else "host-to-device copy" if "Memcpy" in name
+                 else "tensor copies (.contiguous, layout)" if "copy" in name
+                 else "cuDNN NCHW<->NHWC transposes" if any(t in name for t in ("nchwToNhwc",
+                                                                               "nhwcToNchw"))
                  else "convolution" if any(t in name for t in ("conv", "fprop", "Nhwc", "Nchw"))
                  else "gemm" if "gemm" in name
                  else "elementwise and other")
@@ -303,12 +375,34 @@ def phase_parity(weights: str) -> None:
             raise AssertionError(f"card forward disagrees with the CPU forward on {name}")
 
 
-def main() -> int:
+def profile_only(gpu: str) -> None:
+    """Phase 3's profile alone, at the same weights and batch."""
+    from vaeplay_torch.cli import test_bp
+    from vaeplay_torch.data.bp_data import SyntheticEmitDataset
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
+        weights = os.path.join(tmp, "bp_random.pt")
+        random_weights(weights)
+        model = test_bp.load_model(weights, 512, dev)
+    imgs = SyntheticEmitDataset(img_size=512, data_size=16).sample_batch(4, batch_seed=1)[0]
+    test_bp.predict(model, imgs, dev)
+    _profile(model, imgs, dev)
+    print(gpu)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     gpu = gpu_line()
     phase_build()
+    if argv == ["--profile-only"]:
+        profile_only(gpu)
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     with strict_f32():
         kernel = phase_kernels(gpu)
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
@@ -326,4 +420,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -75,7 +75,10 @@ class SelfAttentionBlock(nn.Module):
     blocks.py:67-95): out = gamma * attention(q, k, v) + x over the H*W
     positions, gamma a learned scalar initialised to 0. The attention runs
     through ops.attention.spatial_self_attention, which takes the CUDA
-    kernel for a tensor on the card."""
+    kernel for a tensor on the card. q, k and v reach it as (B, H*W, C')
+    transpose views of the NCHW maps, with no copy; on the card the result
+    is the transpose view of a contiguous (B, C, H*W), so the reshape back to
+    NCHW is free too."""
 
     def __init__(self, in_channels: int, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -88,8 +91,8 @@ class SelfAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
 
-        def positions(t):  # (B, C', H, W) -> contiguous (B, H*W, C')
-            return t.reshape(b, t.shape[1], h * w).transpose(1, 2).contiguous()
+        def positions(t):  # (B, C', H, W) -> (B, H*W, C') view, position stride 1
+            return t.reshape(b, t.shape[1], h * w).transpose(1, 2)
 
         out = spatial_self_attention(positions(self.q(x)), positions(self.k(x)),
                                      positions(self.v(x)))

@@ -22,12 +22,12 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 # The C functions of each library: name -> (argtypes, restype).
 SIGNATURES = {
     "flash_attention": {
-        # q, k, v, out, b, n, dk, dv, bf16, stream
-        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        # q, k, v, out, b, n, dk, dv, strides[12], stream
+        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I64P, _P], _I),
     },
 }
 
@@ -47,30 +47,30 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the named sources (default: all of them) that are not built
-    yet, one `nvcc` process per source, all started together. Returns, per
-    name, the build's wall seconds (0.0 when it was already built) and the
-    compiler's log (ptxas's register and shared-memory report). Raises with
-    the compiler's output when a build fails."""
+def build(names: Optional[Iterable[str]] = None, csrc: Path = CSRC) -> Dict[str, dict]:
+    """Compile the named sources of `csrc` (default: all of the port's) that
+    are not built yet, one `nvcc` process per source, all started together.
+    Returns, per name, the build's wall seconds (0.0 when it was already
+    built) and the compiler's log (ptxas's register and shared-memory
+    report). Raises with the compiler's output when a build fails."""
     names = sorted(SIGNATURES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs, report = {}, {}
     start = time.perf_counter()
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             report[name] = {"seconds": 0.0, "log": ""}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -9,24 +9,45 @@ Port of vaeplay_tpu/ops/attention.py. Semantics (the reference's, exactly):
 `reference_attention` and a CUDA tensor to the hand-written kernel
 (`csrc/flash_attention.cu`, through `flash_attention`), for every N. There is
 no fallback: the kernel launches or the call raises.
+
+Shapes are (B, N, C) throughout. `flash_attention` takes each of q, k, v in
+either of two layouts: position-major (channel stride 1, a contiguous
+(B, N, C)) or channel-major (position stride 1, the (B, N, C) transpose view
+of a contiguous (B, C, N), which is how an NCHW activation holds its
+positions), in f32 or bf16. The kernel itself reads f32 with k and v
+channel-major and 16-byte aligned rows, where the model leaves them; any
+other k or v is brought into that form with one copy, and bf16 is widened
+to f32 (exactly) and the result rounded once to bf16.
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from vaeplay_torch.ops import _build
 
 MAX_DK = 128  # the kernel's limit (MAX_DK in csrc/flash_attention.cu)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain version: (B, N, Dk), (B, N, Dk), (B, N, Dv) -> (B, N, Dv).
-    Products and softmax in f32; the result has v's dtype."""
+    """Plain version: (B, N, Dk), (B, N, Dk), (B, N, Dv) -> (B, N, Dv), any
+    strides. Products and softmax in f32; the result has v's dtype."""
     energy = torch.bmm(q.float(), k.float().transpose(1, 2))
     attn = torch.softmax(energy, dim=-1)
     return torch.bmm(attn, v.float()).to(v.dtype)
+
+
+def _channel_major(name: str, t: torch.Tensor) -> bool:
+    """False when t's channels are contiguous, True when its positions are;
+    raises for any other layout."""
+    if t.stride(2) == 1 or t.shape[2] == 1:
+        return False
+    if t.stride(1) == 1 or t.shape[1] == 1:
+        return True
+    raise ValueError(f"flash_attention: {name} needs channel stride 1 or position stride 1, "
+                     f"got strides {t.stride()}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -35,8 +56,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {name} is on {t.device}, not a CUDA device")
         if t.dim() != 3:
             raise ValueError(f"flash_attention: {name} must be (B, N, D), got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("flash_attention: q, k, v must share one dtype and device")
     if q.dtype not in _DTYPES:
@@ -48,28 +67,67 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (0 < dk <= MAX_DK) or n == 0 or v.shape[2] == 0 or not (0 < b <= 65535):
         raise ValueError(f"flash_attention: needs 0 < Dk <= {MAX_DK}, N > 0, Dv > 0 and "
                          f"0 < B <= 65535; got q {tuple(q.shape)}, v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _channel_major(name, t)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("flash_attention: the CUDA kernel has no backward yet; "
                            "run it under torch.no_grad()")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream. CUDA tensors only;
-    raises on anything the kernel does not take. `flash_attention.launches`
-    counts the launches."""
+def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
+    b, n, dv = v.shape
+    if out.shape != (b, n, dv) or out.dtype != v.dtype or out.device != v.device:
+        raise ValueError(f"flash_attention: out must be {(b, n, dv)} {v.dtype} on {v.device}, "
+                         f"got {tuple(out.shape)} {out.dtype} on {out.device}")
+    if not (out.is_contiguous() or out.transpose(1, 2).is_contiguous()):
+        raise ValueError("flash_attention: out must be a contiguous (B, N, Dv) or the "
+                         "transpose view of a contiguous (B, Dv, N)")
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernel reads k and v: f32, position stride 1, address and
+    channel and batch strides multiples of 16 bytes. t itself where it is so
+    already (the model's layout), else one copy into a (B, C, N4) buffer,
+    N4 the next multiple of 4, returned as its (B, N, C) view."""
+    b, n, c = t.shape
+    rows = (t.stride(2),) if b == 1 else (t.stride(2), t.stride(0))
+    if (t.dtype == torch.float32 and t.stride(1) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % 4 == 0 for s in rows)):
+        return t
+    buf = torch.empty((b, c, -(-n // 4) * 4), dtype=torch.float32, device=t.device)
+    view = buf[:, :, :n].transpose(1, 2)
+    view.copy_(t)
+    return view
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream and return `out`
+    (by default a new contiguous (B, N, Dv)). CUDA tensors only; raises on
+    anything the kernel does not take. `flash_attention.launches` counts the
+    launches."""
     _check(q, k, v)
     b, n, dk = q.shape
     dv = v.shape[2]
+    if out is None:
+        out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
+    else:
+        _check_out(out, v)
+    q32, k32, v32 = q.float(), _tma_operand(k), _tma_operand(v)
+    res = out if out.dtype == torch.float32 else torch.empty_strided(
+        out.shape, out.stride(), dtype=torch.float32, device=out.device)
     lib = _build.load("flash_attention")
-    out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
+    strides = (ctypes.c_longlong * 12)(*q32.stride(), *k32.stride(), *v32.stride(), *res.stride())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, n, dk, dv, _DTYPES[q.dtype], ctypes.c_void_p(stream))
+            q32.data_ptr(), k32.data_ptr(), v32.data_ptr(), res.data_ptr(),
+            b, n, dk, dv, strides, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    if res is not out:
+        out.copy_(res)
     return out
 
 
@@ -79,8 +137,12 @@ flash_attention.launches = 0
 def spatial_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unscaled softmax attention over flattened spatial (or point) positions.
 
-    q, k: (B, N, Dk); v: (B, N, Dv). Returns (B, N, Dv). A CPU tensor takes
-    the plain version, a CUDA tensor the kernel."""
+    q, k: (B, N, Dk); v: (B, N, Dv), each position-major or channel-major.
+    Returns (B, N, Dv). A CPU tensor takes the plain version; a CUDA tensor
+    takes the kernel, which writes a channel-major result: the (B, N, Dv)
+    transpose view of a contiguous (B, Dv, N)."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v)
-    return flash_attention(q, k, v)
+    b, n, dv = v.shape
+    out = torch.empty((b, dv, n), dtype=v.dtype, device=v.device).transpose(1, 2)
+    return flash_attention(q, k, v, out=out)

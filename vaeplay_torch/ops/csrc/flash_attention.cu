@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), with a plain C interface that
-// vaeplay_torch/ops/attention.py binds with ctypes.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores, with a
+// plain C interface that vaeplay_torch/ops/attention.py binds with ctypes.
 //
 // Replaces the TPU kernel vaeplay_tpu/ops/attention.py:_flash_kernel, launched
 // by _pallas_attention (attention.py:37-119). Both compute unscaled softmax
@@ -7,244 +7,538 @@
 //
 //   out[b, i, :] = sum_j softmax_j(q[b, i, :] . k[b, j, :]) v[b, j, :]
 //
-// with no 1/sqrt(d). q, k: (B, N, Dk); v, out: (B, N, Dv); all contiguous,
-// f32 or bf16. bf16 inputs are widened to f32 as they are staged; every
-// product, the softmax and the accumulator run in f32, and only the output is
-// rounded to the input type.
+// with no 1/sqrt(d). q, k: (B, N, Dk); v, out: (B, N, Dv); f32. Each operand
+// comes with its element strides (batch, position, channel), so the kernel
+// reads q, k, v and writes out where the model keeps them: k and v
+// channel-major (position stride 1, the (B, C, N) layout of an NCHW
+// activation) with 16-byte aligned rows, q and out any strides. The wrapper
+// brings other inputs into that form with one copy (bf16 is widened there:
+// it is exact in f32).
 //
-// What bounds it on this card. At the BP shape (B=4, N=2048, Dk=90, Dv=720,
-// f32) one call does 2*B*N^2*(Dk+Dv) = 27.2 GFLOP on 53 MB of inputs and
-// output, about 500 FLOP per byte, so it is bound by operations. It runs on
-// the CUDA cores' f32 FMA units (no tensor cores in this version), so its
-// floor is that rate.
+// What bounds it on this card. At the BP shape (B=4, N=2048, Dk=90, Dv=720)
+// one call is 2*B*N^2*(Dk+Dv) = 27.2 GFLOP of products on 53 MB of inputs and
+// output, about 500 FLOP per byte: it is bound by operations. Both products
+// run as 3xTF32 on the tensor cores: each operand x is split into
+// big = tf32(x) and small = tf32(x - big), and big*big + big*small +
+// small*big is summed in f32. That keeps f32 accuracy (a single TF32 pass
+// does not: tests/test_torch_attention.py) at three tensor-core passes, so
+// the floor is 3 * 27.2 GFLOP at 495 TFLOP/s = 0.165 ms. A second bound is
+// the K/V stream from L2 into the SMs, about 1 GB per call at this tiling,
+// which the TMA engine moves without the warps.
 //
-// Design. The TPU kernel walks the K/V blocks as a sequential grid axis and
-// carries the online-softmax state (row max, row sum, accumulator) in VMEM
-// scratch from one grid step to the next. Hopper runs blocks in no order, so
-// that axis becomes a loop inside one block and the state lives in registers.
-//
-//   grid  = (ceil(N/64) query tiles, ceil(Dv/128) value tiles, B)
-//   block = 256 threads, owning 64 query rows and one 128-wide slice of Dv.
-//
-// Q is staged once, transposed, in shared memory; each K tile (transposed) and
-// V tile is staged in turn. Thread t owns rows 4*(t/16)..+3: for the scores it
-// holds 4 x 4 entries (columns 4*(t%16)..+3), for the output 4 x 8 entries
-// (columns 4*(t%16)..+3 and 64 more). The 16 threads that share rows form one
-// half-warp, so the row max and row sum are warp shuffles, and the
-// probabilities reach the P.V product through a shared tile that only that
-// half-warp reads and writes. Key columns past N get a score of -1e30 (as the
-// TPU kernel's mask does) and key rows past N are staged as zeros; query rows
-// and value columns past the edge are never stored. Dk is looped exactly, so
-// it needs no padding.
-//
-// A 64 x 720 f32 accumulator (184 KB) does not fit in one block's registers,
-// so Dv is split across blocks and each block recomputes its own scores: at
-// Dk=90, Dv=720 the six value tiles make the executed FMAs 1.56x the
-// algorithm's count. Sharing the scores (or tensor cores, for bf16 and TF32)
-// is the first thing a faster version would change.
+// Design.
+//   grid  = (ceil(N/64) query tiles, T value tiles, B); one block per SM.
+//   block = 12 warps in 3 warpgroups: 4 row groups of 16 query rows x 3
+//           column groups, column group c being warpgroup c.
+//   T     = ceil(ceil(Dv/8) / 45): each block owns at most 360 value columns
+//           (45 n-tiles of 8, 120 columns and 60 accumulator registers a
+//           thread per warpgroup). At Dv = 720, T = 2 blocks of 360 columns,
+//           so the scores are computed twice: with Dk padded to 96 the
+//           executed products are (2*96 + 720) / 810 = 1.13x the
+//           algorithm's (six value tiles of 128 would make it 1.60x).
+//   Scores, once per block and one key tile ahead: while all warps run the
+//   softmax and P.V of tile j, column groups 0 and 1 compute the 64 x 32
+//   scores of tile j+1 with mma.sync m16n8k8 (warp (r, c): rows 16r.., key
+//   columns 16c..16c+15) into the second of two score buffers; Q is staged
+//   once per block in the A-fragment order and split as it is loaded. The
+//   softmax (row max and sum over the 4 lanes of a quad) reads the scores in
+//   the A-fragment layout of P. The TPU kernel's sequential k-block grid axis
+//   is the loop over key tiles; its VMEM scratch (max, sum, accumulator)
+//   lives in registers.
+//   K and V tiles of 32 keys arrive by the TMA engine (tensor maps over
+//   (N, C, B), 128-byte swizzle, mbarriers) in rings of two stages, K two
+//   tiles ahead and V one, each warpgroup loading its own 120 V rows; keys
+//   past N and channels past Dk or Dv arrive as zeros. Each warpgroup splits
+//   its rows of the V tile in place (big) and into a second buffer (small),
+//   then runs P.V as 3 x 4 wgmma m64n120k8 per tile with P from registers and
+//   V read as K-major from shared memory (channel-major V is K-major, as
+//   TF32 wgmma needs).
+//   Dk is padded with zeros to a multiple of 32 (96 at Dk = 90). Key columns
+//   past N score -1e30 (as the TPU kernel's mask); query rows and value
+//   columns past the edge are never stored. Fragment reads of K and V are
+//   free of bank conflicts by the swizzle.
+//   Per block: 384 threads at 155 registers each and no spills (ptxas,
+//   CUDA 12.8; chip_smoke.py prints the count), 222,240 bytes of shared
+//   memory (two K stages 32 KB, two V stages 90 KB, the small parts of V
+//   45 KB, Q 32 KB, two score tiles 18 KB).
 
-#include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // key rows per tile
-constexpr int BDV = 128;     // value columns per block
-constexpr int THREADS = 256;
-constexpr int LDT = BQ + 4;  // row stride of the transposed Q and K tiles (BQ == BK)
-constexpr int LDP = BK + 4;  // row stride of the probability tile
+constexpr int BQ = 64;                 // query rows per block
+constexpr int BK = 32;                 // keys per staged tile, one 128-byte row
+constexpr int WC = 3;                  // column groups (warpgroups)
+constexpr int THREADS = 32 * 4 * WC;   // 12 warps: 4 row groups x 3 column groups
 constexpr int MAX_DK = 128;
+constexpr int MAX_KS = MAX_DK / 8;     // k-steps of the score product
+constexpr int NT = 15;                 // value n-tiles (8 columns) per warp
+constexpr int V_ROWS = NT * 8;         // value columns (V rows) per warpgroup, 120
+constexpr int BLK_NT = WC * NT;        // value n-tiles per block
+constexpr int LDS = BK + 4;            // row stride (elements) of the score tiles
+constexpr int MAX_DEVICES = 64;
 constexpr float NEG_INF = -1e30f;
 
-static_assert(BQ == BK, "Q and K tiles share one stride");
-static_assert(THREADS == 16 * (BQ / 4), "16 threads per group of 4 rows");
-static_assert(BDV == 2 * 64, "each thread owns two 4-wide value column groups");
+// Shared memory of one block: two K stages and two V stages first (the
+// 128-byte swizzle wants 1024-byte aligned stages), the small parts of the
+// V tile in use, then Q in the A-fragment order, two score tiles, and the
+// mbarriers. A stage holds rows of BK keys, one row per channel.
+constexpr int K_STAGE = MAX_DK * BK;
+constexpr int V_STAGE = WC * V_ROWS * BK;
+constexpr size_t STAGES_BYTES = 2 * sizeof(float) * (K_STAGE + V_STAGE);
+constexpr size_t VSMALL_BYTES = sizeof(float) * V_STAGE;
+constexpr size_t Q_BYTES = sizeof(uint32_t) * BQ * MAX_DK;
+constexpr size_t S_BYTES = 2 * sizeof(float) * BQ * LDS;
+constexpr size_t SMEM = STAGES_BYTES + VSMALL_BYTES + Q_BYTES + S_BYTES + 4 * sizeof(uint64_t);
+static_assert(sizeof(float) * K_STAGE % 1024 == 0 && sizeof(float) * V_STAGE % 1024 == 0,
+              "swizzled stages stay 1024-byte aligned");
+static_assert(SMEM <= 232448, "one block per SM");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+struct Params {
+  CUtensorMap k_map, v_map;  // K and V as (N, C, B) tensors
+  const float* q;
+  float* out;
+  int64_t sq[3], so[3];      // (batch, position, channel) strides, elements
+  int n, dk, dv;
+  int bdv;                   // value columns per block, a multiple of 8
+};
 
-// Reduce over the 16 lanes of a half-warp (xor offsets below 16 stay inside it).
-__device__ __forceinline__ float half_warp_max(float x) {
+// The tensor cores read a TF32 operand from the top 19 bits of a 32-bit
+// register and ignore the low 13. Adding half of that unit (0x1000) first
+// rounds to the nearest TF32 value, ties away from zero, as cvt.rna.tf32.f32
+// does for finite values, in one integer add (cvt.rna is several
+// instructions on this card). big is masked so that x - big is exact.
+__device__ __forceinline__ uint32_t tf32_round(uint32_t bits) { return bits + 0x1000u; }
+
+// big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_round(__float_as_uint(x)) & 0xffffe000u;
+  small = tf32_round(__float_as_uint(x - __uint_as_float(big)));
+}
+
+// c += a . b on one 16x8x8 TF32 tile (PTX fragment layouts: a row-major
+// 16x8, b column-major 8x8, c 16x8 in f32).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+// The one arrival of a phase, which also expects `bytes` of TMA loads.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+                 "selp.u32 %0, 1, 0, p; }"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+// A TMA load of one box of a 3-d tensor map at element coordinates (x, y, z)
+// into dst, completing on `bar`; elements outside the tensor become zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma: the warpgroup's (4 warps, 128 threads) asynchronous 64 x N x 8
+// product. B comes from shared memory through a descriptor: K-major (the
+// 8 keys of a k-step contiguous in each row), 128-byte swizzle, 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving an accumulator while a wgmma owns it.
+__device__ __forceinline__ void pin(float (&d)[NT][4]) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+// d (64 x 120, this thread's part in the mma.sync C layout of 15 n-tiles)
+// += a (64 x 8 TF32, this warp's 16 rows in the mma.sync A layout) . B.
+__device__ __forceinline__ void wgmma_120(float (&d)[NT][4], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(NT == 15, "m64n120");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59}, {%60, %61, %62, %63}, %64, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-size_t smem_bytes(int dk) {
-  return sizeof(float) * (size_t(2) * dk * LDT + size_t(BK) * BDV + size_t(BQ) * LDP);
+// Element (pos, chan) of a staged tile: one row of BK positions per channel,
+// in the TMA engine's 128-byte swizzle, where the 16-byte unit u of row r
+// sits at unit u ^ (r % 8).
+__device__ __forceinline__ float at(const float* tile, int pos, int chan) {
+  return tile[chan * BK + ((((pos >> 2) ^ (chan & 7)) << 2) | (pos & 3))];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int n, int dk, int dv) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;             // [dk][LDT]  Q tile, transposed
-  float* kt = qt + dk * LDT;    // [dk][LDT]  K tile, transposed
-  float* vs = kt + dk * LDT;    // [BK][BDV]  V tile
-  float* ps = vs + BK * BDV;    // [BQ][LDP]  probabilities of the current tile
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* kst = reinterpret_cast<float*>(smem);  // 2 K stages
+  float* vst = kst + 2 * K_STAGE;               // 2 V stages
+  // the small parts of the V tile in use (its big parts replace the tile in
+  // its stage), same layout
+  float* vsmall = reinterpret_cast<float*>(smem + STAGES_BYTES);
+  // Q in A-fragment order: [row group][k-step][lane][4]
+  uint32_t* qfrag = reinterpret_cast<uint32_t*>(smem + STAGES_BYTES + VSMALL_BYTES);
+  float* sbuf = reinterpret_cast<float*>(qfrag + BQ * MAX_DK);  // 2 x [BQ][LDS]
+  // arrivals of K tiles (stage 0, 1) and V tiles (stage 0, 1)
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sbuf + 2 * BQ * LDS);
+  uint64_t* vfull = kfull + 2;
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;      // rows 4*ty .. 4*ty+3
-  const int tx = tid & 15;      // score columns 4*tx..+3; value columns 4*tx..+3 and +64
-  const int q0 = blockIdx.x * BQ;
-  const int c0 = blockIdx.y * BDV;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group and column in the quad
+  const int wr = warp & 3, wc = warp >> 2;
+  const int n = p.n, dk = p.dk, dv = p.dv;
+  // Dk padded with zeros to whole chunks of 4 k-steps (96 at Dk = 90)
+  const int dkp = (dk + 31) & ~31, nchunks = dkp >> 5;
+  const int q0 = blockIdx.x * BQ, c0 = blockIdx.y * p.bdv;
   const int64_t b = blockIdx.z;
-  const T* qb = q + b * n * dk;
-  const T* kb = k + b * n * dk;
-  const T* vb = v + b * n * dv;
-  T* ob = out + b * n * dv;
+  const float* qb = p.q + b * p.sq[0];
+  float* ob = p.out + b * p.so[0];
 
-  // The (BQ, dk) query tile is one contiguous run of memory.
-  for (int e = tid; e < BQ * dk; e += THREADS) {
-    const int r = e / dk, d = e - r * dk;
+  // K tile j lives in K stage j & 1 and arrives on kfull[j & 1] (one
+  // arrival, thread 0); V tile j lives in V stage j & 1 and arrives on
+  // vfull[j & 1] (one arrival per warpgroup, its 120 rows). Tile j
+  // completes phase (j >> 1) & 1.
+  auto issue_k = [&](int tile) {
+    if (tid == 0) {
+      mbar_arrive_expect(kfull + (tile & 1), uint32_t(sizeof(float) * BK * dkp));
+      tma_load(kst + (tile & 1) * K_STAGE, &p.k_map, tile * BK, 0, int(b), kfull + (tile & 1));
+    }
+  };
+  // every warpgroup computes its full 120 columns; only the block's columns
+  // are stored
+  auto issue_v = [&](int tile) {
+    if ((tid & 127) == 0) {
+      mbar_arrive_expect(vfull + (tile & 1), uint32_t(sizeof(float) * BK * V_ROWS));
+      tma_load(vst + (tile & 1) * V_STAGE + wc * V_ROWS * BK, &p.v_map, tile * BK,
+               c0 + wc * V_ROWS, int(b), vfull + (tile & 1));
+    }
+  };
+  auto wait_k = [&](int tile) { mbar_wait(kfull + (tile & 1), (tile >> 1) & 1); };
+  auto wait_v = [&](int tile) { mbar_wait(vfull + (tile & 1), (tile >> 1) & 1); };
+
+  // scores of rows 16wr.. and key columns 16wc..16wc+15 of tile `tile`, by
+  // column groups 0 and 1, into score buffer tile & 1; even and odd k-steps
+  // sum apart, for shorter chains of dependent products
+  auto scores = [&](int tile) {
+    if (wc >= 2) return;
+    const float* ks = kst + (tile & 1) * K_STAGE;
+    float* sb = sbuf + (tile & 1) * BQ * LDS;
+    const uint4* qf = reinterpret_cast<const uint4*>(qfrag) + wr * MAX_KS * 32 + lane;
+    float sc[2][2][4] = {};
+    // the k-steps in chunks of 4 without a branch inside a chunk, so the
+    // loads of one k-step overlap the products of another
+#pragma unroll
+    for (int kk = 0; kk < MAX_KS; ++kk) {
+      if (kk % 4 == 0 && kk / 4 >= nchunks) break;
+      const int d = 8 * kk + t;
+      const uint4 qv = qf[kk * 32];
+      uint32_t ab[4] = {qv.x, qv.y, qv.z, qv.w}, as[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(__uint_as_float(ab[i]), ab[i], as[i]);
+      uint32_t bb[2][2], bs[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = 16 * wc + 8 * j + g;
+        split(at(ks, key, d), bb[j][0], bs[j][0]);
+        split(at(ks, key, d + 4), bb[j][1], bs[j][1]);
+      }
+      // the passes in turn over both n-tiles, sharing the A operand
+      mma(sc[kk & 1][0], as, bb[0]);
+      mma(sc[kk & 1][1], as, bb[1]);
+      mma(sc[kk & 1][0], ab, bs[0]);
+      mma(sc[kk & 1][1], ab, bs[1]);
+      mma(sc[kk & 1][0], ab, bb[0]);
+      mma(sc[kk & 1][1], ab, bb[1]);
+    }
+    const int row = 16 * wr + g;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = 16 * wc + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(sb + row * LDS + col) =
+          make_float2(sc[0][j][0] + sc[1][j][0], sc[0][j][1] + sc[1][j][1]);
+      *reinterpret_cast<float2*>(sb + (row + 8) * LDS + col) =
+          make_float2(sc[0][j][2] + sc[1][j][2], sc[0][j][3] + sc[1][j][3]);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(kfull, 1);
+    mbar_init(kfull + 1, 1);
+    mbar_init(vfull, WC);
+    mbar_init(vfull + 1, WC);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ntiles = (n + BK - 1) / BK;
+  issue_k(0);
+  if (ntiles > 1) issue_k(1);
+  issue_v(0);
+
+  // Q once, zero-padded to BQ x dkp, in the A-fragment order: element
+  // (row, d) of row group row / 16 goes to lane 4 * (row % 8) + d % 4, slot
+  // (row % 16 >= 8) + 2 * (d % 8 >= 4); the scores split it as they load it
+  for (int e = tid; e < BQ * dkp; e += THREADS) {
+    const int r = e & (BQ - 1), d = e >> 6;
     const int row = q0 + r;
-    qt[d * LDT + r] = row < n ? to_f32(qb[int64_t(row) * dk + d]) : 0.f;
+    const float x = (row < n && d < dk) ? qb[row * p.sq[1] + d * p.sq[2]] : 0.f;
+    const int at_ = (((r >> 4) * MAX_KS + (d >> 3)) * 32 + 4 * (r & 7) + (d & 3)) * 4 +
+                    ((r >> 3) & 1) + 2 * ((d >> 2) & 1);
+    qfrag[at_] = __float_as_uint(x);
   }
+  wait_k(0);
+  __syncthreads();  // Q and K tile 0 are staged
+  scores(0);
 
-  float m[4], l[4], acc[4][8];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  }
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    for (int e = tid; e < BK * dk; e += THREADS) {
-      const int r = e / dk, d = e - r * dk;
-      const int row = k0 + r;
-      kt[d * LDT + r] = row < n ? to_f32(kb[int64_t(row) * dk + d]) : 0.f;
-    }
-    for (int e = tid; e < BK * BDV; e += THREADS) {
-      const int r = e / BDV, c = e - r * BDV;
-      const int row = k0 + r, col = c0 + c;
-      vs[e] = (row < n && col < dv) ? to_f32(vb[int64_t(row) * dv + col]) : 0.f;
-    }
+  // Iteration `it`: scores of tile it+1 (column groups 0, 1), softmax and
+  // P.V of tile it (all warps), while K tile it+2 and V tile it+1 are loaded.
+  const int qrow = 16 * wr + g;  // the thread's first row in the block
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) wait_k(it + 1);
+    wait_v(it);
+    // K tile it+1, V tile it and the scores of tile it are in place; every
+    // warp is done with iteration it-1, so K stage it & 1, V stage
+    // (it+1) & 1 and score buffer (it+1) & 1 are free
     __syncthreads();
-
-    // scores: s[i][j] = q[4*ty+i] . k[k0 + 4*tx+j]
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < dk; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDT + 4 * ty);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * LDT + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (k0 + 4 * tx + j >= n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
-      }
+    if (it + 2 < ntiles) issue_k(it + 2);
+    if (it + 1 < ntiles) {
+      issue_v(it + 1);
+      scores(it + 1);
     }
 
-    // online softmax: every tile holds at least one valid key column, so
-    // m_new is finite and masked columns give exactly 0
+    // online softmax over tile it, in the A-fragment layout of P
+    const int k0 = it * BK;
+    const float* sb = sbuf + (it & 1) * BQ * LDS;
+    float pr[BK / 8][4];
+    float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = __expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = __expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
-      *reinterpret_cast<float4*>(ps + (4 * ty + i) * LDP + 4 * tx) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const int c = 8 * kk + t;
+      const int sa = qrow * LDS + c;
+      pr[kk][0] = sb[sa];
+      pr[kk][1] = sb[sa + 8 * LDS];
+      pr[kk][2] = sb[sa + 4];
+      pr[kk][3] = sb[sa + 8 * LDS + 4];
+      if (k0 + c >= n) pr[kk][0] = pr[kk][1] = NEG_INF;
+      if (k0 + c + 4 >= n) pr[kk][2] = pr[kk][3] = NEG_INF;
+      mx0 = fmaxf(mx0, fmaxf(pr[kk][0], pr[kk][2]));
+      mx1 = fmaxf(mx1, fmaxf(pr[kk][1], pr[kk][3]));
     }
-    __syncwarp();  // rows 4*ty..+3 of ps are written and read by one half-warp
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // every tile holds a valid key, so the new max is finite and masked
+    // columns give exactly 0
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float al0 = __expf(m[0] - mn0), al1 = __expf(m[1] - mn1);
+    m[0] = mn0;
+    m[1] = mn1;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      pr[kk][0] = __expf(pr[kk][0] - mn0);
+      pr[kk][2] = __expf(pr[kk][2] - mn0);
+      pr[kk][1] = __expf(pr[kk][1] - mn1);
+      pr[kk][3] = __expf(pr[kk][3] - mn1);
+      s0 += pr[kk][0] + pr[kk][2];
+      s1 += pr[kk][1] + pr[kk][3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    l[0] = l[0] * al0 + s0;
+    l[1] = l[1] * al1 + s1;
 
-    // acc += P . V over the tile
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float p[4][4];
+    // acc += P . V with wgmma over the warpgroup's 120 value columns: this
+    // tile's rows of the warpgroup are split in place (big) and into vsmall,
+    // then three products per k-step
+    float* vbig = vst + (it & 1) * V_STAGE + wc * V_ROWS * BK;
+    float* vsm = vsmall + wc * V_ROWS * BK;
+    constexpr int UNITS = V_ROWS * BK / 4;  // 16-byte units of the rows
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * LDP + j);
-        p[i][0] = t.x; p[i][1] = t.y; p[i][2] = t.z; p[i][3] = t.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = vs + (j + jj) * BDV + 4 * tx;
-        const float4 v0 = *reinterpret_cast<const float4*>(vrow);
-        const float4 v1 = *reinterpret_cast<const float4*>(vrow + 64);
-        const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p[i][jj], vv[c], acc[i][c]);
-      }
+    for (int i = 0; i < (UNITS + 127) / 128; ++i) {
+      const int e = (tid & 127) + 128 * i;
+      if (UNITS % 128 != 0 && e >= UNITS) break;
+      const float4 x = reinterpret_cast<const float4*>(vbig)[e];
+      uint4 big, small;
+      split(x.x, big.x, small.x);
+      split(x.y, big.y, small.y);
+      split(x.z, big.z, small.z);
+      split(x.w, big.w, small.w);
+      reinterpret_cast<uint4*>(vbig)[e] = big;
+      reinterpret_cast<uint4*>(vsm)[e] = small;
     }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for the wgmma reads
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wc) : "memory");    // the warpgroup's split
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= al0; acc[j][1] *= al0;
+      acc[j][2] *= al1; acc[j][3] *= al1;
+    }
+    uint32_t pb[BK / 8][4], ps[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(pr[kk][i], pb[kk][i], ps[kk][i]);
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {  // k-step kk: bytes 32kk.. of each row
+      wgmma_120(acc, ps[kk], kmajor_desc(vbig + 8 * kk));
+      wgmma_120(acc, pb[kk], kmajor_desc(vsm + 8 * kk));
+      wgmma_120(acc, pb[kk], kmajor_desc(vbig + 8 * kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
   }
 
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  const int row0 = q0 + qrow, row1 = row0 + 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= n) continue;
-    const float inv = 1.f / l[i];
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + 64 * h + 4 * tx + e;
-        if (col < dv) store_as(ob + int64_t(row) * dv + col, acc[i][4 * h + e] * inv);
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int col = c0 + V_ROWS * wc + 8 * j + 2 * t + e;
+      if (col >= dv || col >= c0 + p.bdv) continue;
+      if (row0 < n) ob[row0 * p.so[1] + col * p.so[2]] = acc[j][e] * inv0;
+      if (row1 < n) ob[row1 * p.so[1] + col * p.so[2]] = acc[j][2 + e] * inv1;
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int n, int dk, int dv, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dk);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + BQ - 1) / BQ, (dv + BDV - 1) / BDV, b);
-  flash_attention_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), n, dk, dv);
-  return cudaGetLastError();
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return PFN_cuTensorMapEncodeTiled_v12000(nullptr);
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }();
+  return fn;
+}
+
+// The TMA map of a channel-major f32 tensor (position stride 1) as an
+// (N, C, B) tensor with boxes of BK positions x `rows` channels in the
+// 128-byte swizzle; false where the TMA engine cannot take it (a stride or
+// the address not a multiple of 16 bytes).
+bool encode_channel_major(CUtensorMap* map, const void* ptr, int n, int c, int b,
+                          const long long* stride, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  const int64_t row_bytes = stride[2] * 4;
+  const int64_t batch_bytes = b > 1 ? stride[0] * 4 : row_bytes * c;
+  if (encode == nullptr || stride[1] != 1 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 ||
+      row_bytes <= 0 || row_bytes % 16 != 0 || batch_bytes <= 0 || batch_bytes % 16 != 0)
+    return false;
+  const cuuint64_t dims[3] = {cuuint64_t(n), cuuint64_t(c), cuuint64_t(b)};
+  const cuuint64_t strides[2] = {cuuint64_t(row_bytes), cuuint64_t(batch_bytes)};
+  const cuuint32_t box[3] = {BK, cuuint32_t(rows), 1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+                box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
-// Returns a cudaError_t value; 0 is success. bf16 != 0 selects bf16 tensors,
-// else f32. The caller has checked shapes, types and contiguity.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int b, int n, int dk, int dv, int bf16, void* stream) {
+// Returns a cudaError_t value; 0 is success. All four tensors are f32.
+// strides: 12 element strides, (batch, position, channel) of q, k, v and out
+// in turn. k and v must be channel-major (position stride 1) with their
+// address and channel and batch strides multiples of 16 bytes, else the
+// call returns cudaErrorInvalidValue and launches nothing. The caller has
+// checked shapes.
+extern "C" int flash_attention_fwd(const float* q, const float* k, const float* v, float* out,
+                                   int b, int n, int dk, int dv, const long long* strides,
+                                   void* stream) {
   if (b < 1 || b > 65535 || n < 1 || dk < 1 || dk > MAX_DK || dv < 1)
     return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch<__nv_bfloat16>(q, k, v, out, b, n, dk, dv, s)
-                               : launch<float>(q, k, v, out, b, n, dk, dv, s);
-  return int(err);
+  Params p{};
+  p.q = q;
+  p.out = out;
+  for (int i = 0; i < 3; ++i) {
+    p.sq[i] = strides[i];
+    p.so[i] = strides[9 + i];
+  }
+  p.n = n; p.dk = dk; p.dv = dv;
+  // value tiles: the fewest blocks of at most BLK_NT n-tiles, evenly sized
+  const int nv = (dv + 7) / 8;
+  const int tiles = (nv + BLK_NT - 1) / BLK_NT;
+  p.bdv = 8 * ((nv + tiles - 1) / tiles);
+  if (!encode_channel_major(&p.k_map, k, n, dk, b, strides + 3, (dk + 31) & ~31) ||
+      !encode_channel_major(&p.v_map, v, n, dv, b, strides + 6, V_ROWS))
+    return int(cudaErrorInvalidValue);
+
+  // the shared-memory limit is raised once per device
+  static bool raised[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev < 0 || dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_fwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+    if (err != cudaSuccess) return int(err);
+    raised[dev] = true;
+  }
+  const dim3 grid((n + BQ - 1) / BQ, (dv + p.bdv - 1) / p.bdv, b);
+  flash_attention_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
 }
