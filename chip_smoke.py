@@ -11,7 +11,11 @@ Phases, in order; each raises on failure and nothing is caught:
               and channel-major (transpose views of (B, C, N), the layout
               the model passes, with a channel-major result; the kernel
               reads it with no copy), and time kernel, plain version and
-              the PyTorch library call.
+              the PyTorch library call. Then the attention under autograd:
+              the gradients of `SpatialAttention` (the kernel's forward, the
+              recompute backward) against autograd through the plain
+              version; at the training batch of 8, the forward and the
+              gradients against the plain version, then their times.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -21,6 +25,17 @@ Phases, in order; each raises on failure and nothing is caught:
               kernel exactly 9 times.
 4. parity  -- the same weights and image at batch 1: the card's forward
               (kernels) against the port's CPU forward (plain versions).
+5. train   -- BP training through the port's train_bp CLI at 512 px, batch
+              8, the full pyramid, synthetic data: one epoch of 4
+              iterations, a resume of that run for a second epoch, and
+              test_bp rendering the resumed run dir. Every iteration must
+              launch the attention kernel exactly 18 times (9 per pass) and
+              every logged loss be finite. Then a warm-up and three timed
+              iterations at PyTorch's defaults, the peak device memory, and
+              a profile of one iteration by kernel group.
+6. train parity -- one two-pass iteration on the card and on the CPU from
+              the same weights and batch (128 px, batch 2, a narrow
+              pyramid, TF32 off): the seven losses and pass 1's gradients.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -34,8 +49,11 @@ that checkout's package, so two versions compare with one script.
 """
 
 import contextlib
+import copy
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -68,8 +86,22 @@ DK_MAX = [(2, 300, 128, 200), (1, 2048, 128, 720)]  # the kernel's largest Dk
 # output, so they differ by up to one bf16 rounding (2^-8 relative) plus
 # summation order.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# the Function's gradients against autograd of the plain version, both f32 on
+# the card: 1e-4 of each gradient's largest magnitude (ds = (dp - sum(dp *
+# attn)) * attn cancels, so an element's error follows its gradient's scale)
+# plus 1e-4 relative; the forward inside is the kernel's, within TOL
+GRAD_TOL = (1e-4, 1e-4)
 PARITY_TOL = (1e-3, 1e-3)  # card forward vs CPU forward, see phase_parity
 PER_FORWARD = 9  # attention launches: 3 ValueEncoder + 3 tower-a + 3 tower-b blocks
+PER_ITERATION = 2 * PER_FORWARD  # a training iteration: the full model, then stage 2
+IMG = 512  # the reference's image size (train_BP.py:131-145, test_BP.py)
+TRAIN_BATCH, TRAIN_ITERATIONS = 8, 4  # the reference trainer's batch (train_BP.py:131-145)
+# phase 6 on the CPU as well: 128 px, batch 2, the tests' narrow pyramid
+TRAIN_PARITY = dict(img=128, batch=2,
+                    channels=((16, 2), (32, 2), (64, 2), (64, 2), (64, 2), (64, 1), (64, 1)))
+# losses and pass 1's gradients, card vs CPU: 1e-3 of each gradient's largest
+# magnitude (or of each loss) plus 1e-3 relative, see phase_train_parity
+TRAIN_PARITY_TOL = (1e-3, 1e-3)
 
 
 def gpu_line() -> str:
@@ -191,57 +223,145 @@ def phase_kernels(gpu: str) -> dict:
     # (kernel, plain version and library call on the same views), and
     # position-major for comparison (there flash_attention copies k and v
     # into the kernel's layout first)
-    b, n, dk, dv = BP_SHAPE
-    times = {}
-    for layout in ("c", "n"):
-        q, k, v = _qkv(BP_SHAPE, torch.float32, seed=0, layout=layout)
-        out = (torch.empty(b, dv, n, device="cuda").transpose(1, 2) if layout == "c"
-               else torch.empty(b, n, dv, device="cuda"))
-        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
-        times[layout] = (
-            cuda_ms(lambda: attention.flash_attention(q, k, v, out=out)),
-            cuda_ms(lambda: attention.reference_attention(q, k, v)),
-            cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, scale=1.0)))
-    ms, plain_ms, library_ms = times["c"]
-    flops = 2.0 * b * n * n * (dk + dv)
-    nbytes = 4.0 * (2 * b * n * dk + 2 * b * n * dv)
-    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
-    t_cuda_core = flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
+    ms, plain_ms, library_ms = _forward_times(BP_SHAPE, "c")
+    bound_ms, bound_by, flops = _forward_bound(BP_SHAPE)
     print(f"[kernels] BP shape f32, channel-major, on {gpu}: kernel_ms {ms:.4f}, "
           f"plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f}, bound_ms {bound_ms:.4f} "
           f"({TF32_PASSES} x {flops / 1e9:.2f} GFLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s "
-          f"TF32; {nbytes / 1e6:.1f} MB), bound_f32_cuda_core_ms {t_cuda_core:.4f}; "
+          f"TF32), bound_f32_cuda_core_ms {flops / PEAK_F32_FLOPS * 1e3:.4f}; "
           f"kernel at {flops / ms / 1e9:.1f} TFLOP/s counted once, "
           f"{bound_ms / ms:.1%} of its bound")
+    times_n = _forward_times(BP_SHAPE, "n")
     print(f"[kernels] BP shape f32, position-major, on {gpu}: flash_attention_ms "
-          f"(copies of k and v, then the kernel) {times['n'][0]:.4f}, "
-          f"plain_ms {times['n'][1]:.4f}, library_ms {times['n'][2]:.4f}")
+          f"(copies of k and v, then the kernel) {times_n[0]:.4f}, "
+          f"plain_ms {times_n[1]:.4f}, library_ms {times_n[2]:.4f}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "vaeplay_torch/ops/csrc/flash_attention.cu",
             "replaces": "vaeplay_tpu/ops/attention.py:37", "engine": ENGINE,
             "launches": None, "max_abs_err": bp_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _forward_times(shape, layout: str):
+    """CUDA-event ms of the kernel, the plain version and the library call
+    (scaled_dot_product_attention) on the same f32 q, k, v in `layout`."""
+    from vaeplay_torch.ops import attention
+
+    b, n, _, dv = shape
+    q, k, v = _qkv(shape, torch.float32, seed=0, layout=layout)
+    out = (torch.empty(b, dv, n, device="cuda").transpose(1, 2) if layout == "c"
+           else torch.empty(b, n, dv, device="cuda"))
+    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    return (cuda_ms(lambda: attention.flash_attention(q, k, v, out=out)),
+            cuda_ms(lambda: attention.reference_attention(q, k, v)),
+            cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0)))
+
+
+def _forward_bound(shape):
+    """(bound_ms, bound_by, flops) of the attention forward: the larger of
+    its products at the TF32 rate, three passes each, and its f32 bytes
+    (q, k, v read once, the output written once) at the memory rate."""
+    b, n, dk, dv = shape
+    flops = 2.0 * b * n * n * (dk + dv)
+    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = 4.0 * (2 * b * n * dk + 2 * b * n * dv) / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
+
+
+def _worst(got: torch.Tensor, ref: torch.Tensor, tol) -> float:
+    """Largest |got - ref| over atol x max |ref| + rtol x |ref|; above 1 fails."""
+    atol, rtol = tol
+    bound = atol * float(ref.abs().max()) + rtol * ref.abs()
+    return float(((got - ref).abs() / bound.clamp(min=1e-30)).max())
+
+
+def _grad_check(shape, layout, q_scale, seed) -> None:
+    """spatial_self_attention's gradients (kernel forward, recompute
+    backward) against autograd through the plain version on the same inputs
+    and output gradient."""
+    from vaeplay_torch.ops import attention
+
+    q, k, v = _qkv(shape, torch.float32, seed, q_scale, layout)
+    g = _qkv(shape, torch.float32, seed + 1000, 1.0, layout)[2]
+    before = attention.flash_attention.launches
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    attention.spatial_self_attention(qg, kg, vg).backward(g)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    attention.reference_attention(qr, kr, vr).backward(g)
+    torch.cuda.synchronize()
+    if attention.flash_attention.launches != before + 1:
+        raise AssertionError("the Function's forward did not launch the kernel once")
+    worst = max(_worst(got, ref, GRAD_TOL) for got, ref in (
+        (qg.grad, qr.grad), (kg.grad, kr.grad), (vg.grad, vr.grad)))
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in (qg, kg, vg))
+    print(f"[kernels] backward B,N,Dk,Dv={shape} layout {layout}: dq, dk, dv at {worst:.3f} of "
+          f"the bound (atol {GRAD_TOL[0]:g} x max |ref| + rtol {GRAD_TOL[1]:g} x |ref|)")
+    if worst > 1 or not finite:
+        raise AssertionError(f"the Function's gradients disagree with autograd of the plain "
+                             f"version at {shape} layout {layout}")
+
+
+def phase_kernel_backward(gpu: str) -> None:
+    """Phase 2's autograd half: the Function's gradients at the BP shape and
+    the ragged shapes in both layouts; then, at the shape the training path
+    gives the kernel (B = 8, channel-major), the forward and the gradients
+    against the plain version on the inputs that are timed after."""
+    from vaeplay_torch.ops import attention
+
+    for i, shape in enumerate([BP_SHAPE] + RAGGED):
+        for layout in ("c", "n"):
+            _grad_check(shape, layout, 1.0 if shape == BP_SHAPE else 0.05, seed=100 + i)
+
+    shape = (TRAIN_BATCH,) + BP_SHAPE[1:]
+    _check_case(shape, torch.float32, "c", 1.0, seed=0)  # _forward_times' q, k, v
+    _grad_check(shape, "c", 1.0, seed=0)
+    b, n, dk, dv = shape
+    fwd_ms, plain_ms, library_ms = _forward_times(shape, "c")
+    bound_ms, _, flops = _forward_bound(shape)
+    print(f"[kernels] forward at B={b} (the training batch), f32, channel-major, on {gpu}: "
+          f"kernel_ms {fwd_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f}, "
+          f"bound_ms {bound_ms:.4f} ({TF32_PASSES} x {flops / 1e9:.2f} GFLOP at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), {bound_ms / fwd_ms:.1%} of its bound")
+
+    q, k, v = _qkv(shape, torch.float32, seed=0, layout="c")
+    g = _qkv(shape, torch.float32, seed=1000, layout="c")[2]  # _grad_check's g
+    bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=10)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    ref_out = attention.reference_attention(qr, kr, vr)
+    autograd_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, (qr, kr, vr), g,
+                                                      retain_graph=True), iters=10)
+    bwd_flops = 2.0 * b * n * n * (3 * dk + 2 * dv)
+    print(f"[kernels] backward at B={b}, f32 (no TF32), channel-major, on {gpu}: "
+          f"attention_backward_ms {bwd_ms:.4f} (recompute: 5 bmm + softmax), plain autograd "
+          f"backward_ms {autograd_ms:.4f} (saved softmax: 4 bmm); {bwd_flops / 1e9:.2f} GFLOP, "
+          f"{bwd_flops / PEAK_F32_FLOPS * 1e3:.4f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32; "
+          f"backward / forward kernel {bwd_ms / fwd_ms:.2f}; per training iteration "
+          f"({PER_ITERATION} of each) {PER_ITERATION * fwd_ms:.2f} ms forward, "
+          f"{PER_ITERATION * bwd_ms:.2f} ms backward")
+
+
+def random_model(seed: int = 0, image_size: int = IMG, emit_channels=None):
+    """A seeded random ComposeNet (the full emit-channel pyramid unless
+    emit_channels is given) with every attention gamma drawn from
+    +-[0.2, 0.6] (it starts at 0, which would hide the attention output)."""
+    from vaeplay_torch.models.bp import ComposeNet
+
+    model = ComposeNet(image_size=image_size, emit_channels=emit_channels,
+                       generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                sign = 1.0 if torch.rand(1, generator=g).item() < 0.5 else -1.0
+                p.copy_(sign * (0.2 + 0.4 * torch.rand(1, generator=g)))
+    return model
 
 
 def random_weights(path: str, seed: int = 0) -> None:
-    """Seeded random ComposeNet weights at 512 px with the full emit-channel
-    pyramid, every attention gamma drawn from +-[0.2, 0.6] (it starts at 0,
-    which would hide the attention output), saved as the CLI's --model_path
-    reads them."""
-    from vaeplay_torch.models.bp import ComposeNet
-
-    model = ComposeNet(image_size=512, generator=torch.Generator().manual_seed(seed))
-    g = torch.Generator().manual_seed(seed + 1)
-    sd = model.state_dict()
-    for key in sd:
-        if key.endswith(".gamma"):
-            sign = 1.0 if torch.rand(1, generator=g).item() < 0.5 else -1.0
-            sd[key] = sign * (0.2 + 0.4 * torch.rand(1, generator=g))
-    torch.save(sd, path)
+    """random_model's weights at 512 px, saved as test_bp's --model_path reads
+    them."""
+    torch.save(random_model(seed).state_dict(), path)
 
 
 def _check_outputs(preds, batch: int) -> None:
@@ -274,44 +394,73 @@ def _time_batches(model, batches, dev, precision: str, gpu: str) -> None:
               f"incl. host-to-device copy) on {gpu}")
 
 
-def _profile(model, imgs, dev, forwards: int = 3) -> None:
-    """Device time by kernel over a few forwards (after one profiled warm-up,
-    which pays CUPTI's start-up), against their wall time."""
+def _group(kernel: str, ops) -> str:
+    """The profile group of a device activity, from its name and the names of
+    the op that launched it and that op's callers (innermost first)."""
+    node = next((o.rsplit(": ", 1)[-1] for o in ops
+                 if o.startswith("autograd::engine::evaluate_function")), "")
+    if "flash_attention" in kernel:
+        return "attention kernel (forward)"
+    if "Memcpy" in kernel:
+        return "host-to-device copy"
+    if any(o.startswith("Optimizer.") for o in ops):
+        return "Adam (step and zero_grad)"
+    if node.startswith("SpatialAttentionBackward"):
+        return "attention backward (bmm, softmax; plain)"
+    if any(t in kernel for t in ("nchwToNhwc", "nhwcToNchw")):
+        return "cuDNN NCHW<->NHWC transposes"
+    if node.startswith("ConvolutionBackward"):
+        return "convolution dgrad/wgrad (cuDNN)"
+    if any(t in kernel for t in ("conv", "fprop", "Nhwc", "Nchw")):
+        return "convolution forward (cuDNN)"
+    if "gemm" in kernel:
+        return "GEMMs (DenseBlocks)" + (", backward" if node else "")
+    if "copy" in kernel:
+        return "tensor copies (.contiguous, layout)"
+    return "elementwise and other" + (", backward" if node else "")
+
+
+def _profile(run, label: str, runs: int = 3) -> None:
+    """Device time by kernel group per call of run(), over `runs` calls
+    (after one profiled call, which pays CUPTI's start-up), against their
+    wall time. Each kernel is grouped by its name and by the ops that
+    launched it (an autograd node, the optimizer)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vaeplay_torch.cli import test_bp
-
-    for n in (1, forwards):
+    for n in (1, runs):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(n):
-                test_bp.predict(model, imgs, dev)
+                run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3 / n
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / forwards
-    print(f"[slice] profiled forward (PyTorch defaults): {busy:.2f} ms device busy, "
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / runs
+    print(f"[{label}] profiled (PyTorch defaults): {busy:.2f} ms device busy, "
           f"{wall:.2f} ms wall, idle share {max(0.0, 1 - busy / wall):.3f}, "
-          f"{sum(e.count for e in events) // forwards} device activities")
+          f"{sum(e.count for e in events) // runs} device activities")
     groups = {}
-    for e in events:
-        name = e.key
-        group = ("attention kernel" if "flash_attention" in name
-                 else "host-to-device copy" if "Memcpy" in name
-                 else "tensor copies (.contiguous, layout)" if "copy" in name
-                 else "cuDNN NCHW<->NHWC transposes" if any(t in name for t in ("nchwToNhwc",
-                                                                               "nhwcToNchw"))
-                 else "convolution" if any(t in name for t in ("conv", "fprop", "Nhwc", "Nchw"))
-                 else "gemm" if "gemm" in name
-                 else "elementwise and other")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3 / forwards
+    for e in prof.events():
+        if e.device_type.name != "CPU" or not e.kernels:
+            continue
+        ops, parent = [], e
+        while parent is not None:
+            ops.append(parent.name)
+            parent = parent.cpu_parent
+        for k in e.kernels:
+            if k.name != e.name:  # a user range's own span on the device
+                group = _group(k.name, ops)
+                groups[group] = groups.get(group, 0.0) + k.duration / 1e3 / runs
+    attributed = sum(groups.values())
+    groups["(not attributed to a launching op)"] = busy - attributed
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[slice]   {ms:8.3f} ms  {group}")
+        print(f"[{label}]   {ms:8.3f} ms  {group}")
     for e in events[:12]:
-        print(f"[slice]   {e.self_device_time_total / 1e3 / forwards:8.3f} ms  "
-              f"x{e.count // forwards:<3d} {e.key[:90]}")
+        print(f"[{label}]   {e.self_device_time_total / 1e3 / runs:8.3f} ms  "
+              f"x{e.count // runs:<3d} {e.key[:90]}")
 
 
 def phase_slice(tmp: str, weights: str, gpu: str) -> int:
@@ -340,7 +489,7 @@ def phase_slice(tmp: str, weights: str, gpu: str) -> int:
     _time_batches(model, batches, dev, "PyTorch defaults: TF32 convolutions", gpu)
     with strict_f32():
         _time_batches(model, batches, dev, "strict f32, no TF32", gpu)
-    _profile(model, batches[1], dev)
+    _profile(lambda: test_bp.predict(model, batches[1], dev), "slice")
     return attention.flash_attention.launches
 
 
@@ -375,6 +524,153 @@ def phase_parity(weights: str) -> None:
             raise AssertionError(f"card forward disagrees with the CPU forward on {name}")
 
 
+def _check_run(run: str, epoch: int, launches: int) -> None:
+    """A train_bp run dir of one epoch: its checkpoint, finite logged losses,
+    and PER_ITERATION kernel launches for each iteration."""
+    from vaeplay_torch.cli import train_bp
+
+    if launches != PER_ITERATION * TRAIN_ITERATIONS:
+        raise AssertionError(f"{TRAIN_ITERATIONS} iterations launched the kernel {launches} "
+                             f"times, not {PER_ITERATION} each")
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] * (TRAIN_ITERATIONS // 2) or not all(
+            math.isfinite(r[k]) for r in lines for k in train_bp.AVG_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    print(f"[train] epoch {epoch}: " + "; ".join(
+        " ".join(f"{k}={r[k]:.4f}" for k in train_bp.AVG_KEYS) for r in lines))
+
+
+def _timed_iterations(gpu: str) -> None:
+    """A warm-up and three timed training iterations at PyTorch's defaults
+    (host clock, each from host batch to synchronize), the peak device
+    memory, and a profile of one iteration."""
+    from vaeplay_torch.cli import train_bp
+    from vaeplay_torch.data.bp_data import SyntheticEmitDataset
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.state import TrainState, step_lr_every_two_epochs
+    from vaeplay_torch.train.steps_bp import make_bp_train_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = random_model().to(dev)
+    state = TrainState.create(model, 1e-3, step_lr_every_two_epochs(500))
+    step = make_bp_train_step(model)
+    ds = SyntheticEmitDataset(img_size=IMG)
+    batches = [ds.sample_batch(TRAIN_BATCH, batch_seed=s) for s in range(5)]
+    for i, batch in enumerate(batches[:4]):
+        before = attention.flash_attention.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, *train_bp.to_device(batch, dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if attention.flash_attention.launches - before != PER_ITERATION:
+            raise AssertionError(f"an iteration did not launch the kernel {PER_ITERATION} times")
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite losses: {metrics}")
+        print(f"[train] iteration {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms (PyTorch "
+              f"defaults: TF32 convolutions; batch {TRAIN_BATCH}, {IMG} px, two passes, host clock "
+              f"incl. host-to-device copy) on {gpu}")
+    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights, gradients, Adam moments, activations)")
+    imgs, p1, p2 = train_bp.to_device(batches[4], dev)
+    _profile(lambda: step(state, imgs, p1, p2), "train", runs=1)
+
+
+def phase_train(tmp: str, gpu: str) -> int:
+    """The training path: train_bp on cuda:0 for one epoch, a resume of it
+    for a second, test_bp on the resumed run dir; then timed iterations.
+    Returns the attention kernel's launches over the whole phase."""
+    from vaeplay_torch.cli import test_bp, train_bp
+    from vaeplay_torch.ops import attention
+
+    attention.flash_attention.launches = 0
+    common = ["--gpu", "0", "--img_size", str(IMG), "--batchsize", str(TRAIN_BATCH),
+              "--iterations", str(TRAIN_ITERATIONS), "--viz_freq", "2",
+              "--res_output", os.path.join(tmp, "train_results")]
+    t0 = time.perf_counter()
+    run = train_bp.main(common + ["--epoch", "1", "--model_output", os.path.join(tmp, "a")])
+    print(f"[train] CLI run (init, {TRAIN_ITERATIONS} iterations, checkpoint) "
+          f"{time.perf_counter() - t0:.2f} s: {run}")
+    _check_run(run, 0, attention.flash_attention.launches)
+
+    before = attention.flash_attention.launches
+    t0 = time.perf_counter()
+    resumed = train_bp.main(common + ["--epoch", "2", "--resume", run,
+                                      "--model_output", os.path.join(tmp, "b")])
+    print(f"[train] resumed CLI run (restore, {TRAIN_ITERATIONS} iterations, checkpoint) "
+          f"{time.perf_counter() - t0:.2f} s: {resumed}")
+    _check_run(resumed, 1, attention.flash_attention.launches - before)
+
+    before = attention.flash_attention.launches
+    written = test_bp.main(["--model_path", resumed, "--gpu", "0", "--img_size", str(IMG),
+                            "--batchsize", "4", "--res_output", os.path.join(tmp, "bp_trained")])
+    if attention.flash_attention.launches - before != PER_FORWARD or not written or not all(
+            p.endswith(".png") and os.path.getsize(p) > 0 for p in written):
+        raise AssertionError(f"test_bp on the trained run dir wrote {written}")
+    print(f"[train] test_bp --model_path <run dir> wrote {written}")
+    shutil.rmtree(os.path.join(tmp, "a"))  # two checkpoints of about 1.1 GB each
+    shutil.rmtree(os.path.join(tmp, "b"))
+
+    _timed_iterations(gpu)
+    return attention.flash_attention.launches
+
+
+def phase_train_parity() -> None:
+    """One two-pass iteration on the card (kernel forward) and on the CPU
+    (plain forward) from the same seeded weights (gammas nonzero) and batch,
+    TF32 off: the seven losses, and pass 1's gradients before any update.
+    Gradients, not weights: Adam's first update is about lr * sign(g), which
+    turns a rounding-sized gradient near 0 into a full-sized step. The images
+    are uniform noise: on a black patch the zero-bias convolutions give
+    pre-activations of exactly 0, where leaky ReLU's gradient jumps, and the
+    card and the CPU may round them to either side."""
+    import numpy as np
+
+    from vaeplay_torch.cli import train_bp
+    from vaeplay_torch.data.bp_data import SyntheticEmitDataset
+    from vaeplay_torch.train.state import TrainState
+    from vaeplay_torch.train.steps_bp import loss_phase1, make_bp_train_step
+
+    cfg = TRAIN_PARITY
+    base = random_model(3, cfg["img"], cfg["channels"])
+    _, p1, p2 = SyntheticEmitDataset(img_size=cfg["img"]).sample_batch(cfg["batch"], 7)
+    for seed in range(20):
+        imgs = np.random.default_rng(seed).uniform(
+            size=(cfg["batch"], cfg["img"], cfg["img"], 3)).astype(np.float32)
+        with torch.no_grad():
+            step = base(torch.from_numpy(imgs))["ellipse_params"][:, 4]
+        if float((step % 1.0 - 0.5).abs().min()) > 0.01:  # round(step) must not flip
+            break
+    else:
+        raise AssertionError("every candidate batch puts step near x.5")
+
+    results = []
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        batch = train_bp.to_device((imgs, p1, p2), dev)
+        model = copy.deepcopy(base).to(dev)
+        loss_phase1(model, *batch)[0].backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        _, metrics = make_bp_train_step(model)(TrainState.create(model, 1e-3), *batch)
+        results.append((grads, {k: v.cpu() for k, v in metrics.items()}))
+    (ref_g, ref_m), (got_g, got_m) = results
+    worst_loss = max(_worst(got_m[k], ref_m[k], TRAIN_PARITY_TOL) for k in ref_m)
+    worst_grad, name = max((_worst(got_g[k], ref_g[k], TRAIN_PARITY_TOL), k) for k in ref_g)
+    print(f"[train parity] losses card vs CPU: " + " ".join(
+        f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in ref_m))
+    print(f"[train parity] worst loss at {worst_loss:.3f} of its bound, worst pass-1 gradient "
+          f"at {worst_grad:.3f} of its bound ({name}); bound atol {TRAIN_PARITY_TOL[0]:g} x "
+          f"max |ref| + rtol {TRAIN_PARITY_TOL[1]:g} x |ref|, {len(ref_g)} tensors")
+    if worst_loss > 1 or worst_grad > 1 or not all(
+            bool(torch.isfinite(t).all()) for t in list(got_g.values()) + list(got_m.values())):
+        raise AssertionError("the card's training iteration disagrees with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -387,7 +683,7 @@ def profile_only(gpu: str) -> None:
         model = test_bp.load_model(weights, 512, dev)
     imgs = SyntheticEmitDataset(img_size=512, data_size=16).sample_batch(4, batch_seed=1)[0]
     test_bp.predict(model, imgs, dev)
-    _profile(model, imgs, dev)
+    _profile(lambda: test_bp.predict(model, imgs, dev), "slice")
     print(gpu)
 
 
@@ -405,12 +701,16 @@ def main(argv) -> int:
         return 2
     with strict_f32():
         kernel = phase_kernels(gpu)
+        phase_kernel_backward(gpu)
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
         random_weights(weights)
         kernel["launches"] = phase_slice(tmp, weights, gpu)
         with strict_f32():
             phase_parity(weights)
+        kernel["launches"] += phase_train(tmp, gpu)
+    with strict_f32():
+        phase_train_parity()
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """The port's attention op (vaeplay_torch.ops.attention) against the JAX
 package's: its plain version on the CPU at f32, in both input layouts the
-kernel takes, the 3xTF32 arithmetic of the kernel emulated on the CPU, and the
+kernel takes, the 3xTF32 arithmetic of the kernel emulated on the CPU, the
+backward (the autograd Function's) against the JAX custom VJP's, and the
 CUDA kernel on a card."""
 
 import jax.numpy as jnp
@@ -9,7 +10,8 @@ import pytest
 import torch
 
 from vaeplay_torch.ops import attention
-from vaeplay_tpu.ops.attention import _pallas_attention, _reference_attention
+from vaeplay_tpu.ops.attention import (_pallas_attention, _pallas_attention_bwd,
+                                       _reference_attention)
 
 # tests/test_attention.py's shapes, plus BP's attention at a short N
 SHAPES = [(2, 64, 4, 32), (2, 100, 8, 16), (2, 256, 16, 128), (2, 333, 5, 7),
@@ -140,3 +142,86 @@ def test_cuda_tensor_takes_the_kernel(monkeypatch, layout):
     assert got.shape == (2, 333, 720) and got.transpose(1, 2).is_contiguous()
     ref = _reference_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
     np.testing.assert_allclose(got.cpu().numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+def _grad_out(b, n, dv, layout, seed=1):
+    g = np.random.default_rng(seed).normal(size=(b, n, dv)).astype(np.float32)
+    return g, _in_layout(g, layout)
+
+
+def _assert_grads_close(got, ref, tol):
+    """Each of (dq, dk, dv) within tol of its largest magnitude plus tol
+    relative: ds = (dp - sum(dp * attn)) * attn cancels, so an element's
+    error follows its gradient's scale, not its own value."""
+    for name, x, r in zip("qkv", got, ref):
+        x, r = np.asarray(x.detach().cpu()), np.asarray(r)
+        np.testing.assert_allclose(x, r, atol=tol * np.abs(r).max(), rtol=tol, err_msg=name)
+
+
+# the recompute VJP against the JAX package's, called directly, at f32
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b,n,dk,dv", SHAPES)
+def test_attention_backward_matches_jax(b, n, dk, dv, layout):
+    qn, kn, vn = _qkv(b, n, dk, dv)
+    gn, g = _grad_out(b, n, dv, layout)
+    got = attention.attention_backward(*(_in_layout(a, layout) for a in (qn, kn, vn)), g)
+    ref = _pallas_attention_bwd(tuple(jnp.asarray(a) for a in (qn, kn, vn)), jnp.asarray(gn))
+    for x, like in zip(got, (qn, kn, vn)):
+        assert x.shape == like.shape and x.dtype == torch.float32
+        # a channel-major input gets a channel-major gradient, which the
+        # convolution behind it takes with no copy
+        assert (x.stride(1) == 1) is (layout == "channel_major" or like.shape[2] == 1)
+    _assert_grads_close(got, ref, 1e-5)
+
+
+def test_spatial_attention_gradcheck():
+    """The Function's backward against finite differences, in f64 on the CPU."""
+    rng = np.random.default_rng(2)
+    q, k = (torch.tensor(rng.normal(size=(2, 7, 3)), requires_grad=True) for _ in range(2))
+    v = torch.tensor(rng.normal(size=(2, 7, 5)), requires_grad=True)
+    assert torch.autograd.gradcheck(attention.SpatialAttention.apply, (q, k, v))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_spatial_attention_grads_equal_autograd_of_plain(layout):
+    """spatial_self_attention's gradients (the Function's backward) equal
+    autograd through reference_attention, at BP's Dk and Dv, f32, 1e-5."""
+    qn, kn, vn = _qkv(2, 100, 90, 720, seed=3)
+    _, g = _grad_out(2, 100, 720, layout)
+
+    def grads(fn):
+        q, k, v = (_in_layout(a, layout).requires_grad_() for a in (qn, kn, vn))
+        fn(q, k, v).backward(g)
+        return q.grad, k.grad, v.grad
+
+    _assert_grads_close(grads(attention.spatial_self_attention),
+                        grads(attention.reference_attention), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cuda_function_gradients(layout):
+    """On a card the Function's forward is the kernel and its backward the
+    recompute VJP; both agree with the JAX package's at f32, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qn, kn, vn = _qkv(2, 333, 90, 720)
+    gn, g = _grad_out(2, 333, 720, layout)
+    q, k, v = (_in_layout(a, layout).cuda().requires_grad_() for a in (qn, kn, vn))
+    with pytest.raises(RuntimeError, match="spatial_self_attention"):
+        attention.flash_attention(q, k, v)  # the wrapper alone records no gradient
+    launches = attention.flash_attention.launches
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = attention.spatial_self_attention(q, k, v)
+        out.backward(g.cuda())
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert attention.flash_attention.launches == launches + 1
+    ref_out = _reference_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    np.testing.assert_allclose(out.detach().cpu().numpy(), np.asarray(ref_out),
+                               atol=1e-4, rtol=1e-4)
+    ref = _pallas_attention_bwd(tuple(jnp.asarray(a) for a in (qn, kn, vn)), jnp.asarray(gn))
+    _assert_grads_close((q.grad, k.grad, v.grad), ref, 1e-4)

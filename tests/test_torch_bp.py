@@ -1,8 +1,11 @@
 """The port's BP slice (vaeplay_torch) against the JAX package's, on the CPU
-at f32: the ellipse sampler and point sampler, one attention block, the whole
-ComposeNet forward with converted weights, the weight round trip through
-vaeplay_tpu's torch_convert, and the synthetic and on-disk data."""
+at f32: the ellipse sampler and point sampler (and its feature gradient), one
+attention block, the whole ComposeNet forward and the teacher-forced stage-2
+pass with converted weights, the weight round trip through vaeplay_tpu's
+torch_convert, and the synthetic and on-disk data of inference and
+training."""
 
+import json
 import os
 
 import jax
@@ -142,3 +145,77 @@ def test_test_split_loader_bit_identical(tmp_path):
     assert len(got) == len(ref) == 2
     for i in range(2):
         np.testing.assert_array_equal(got.load(i), ref.load(i))
+
+
+def test_point_sample_feature_grad_matches_jax():
+    """grid_sample's own backward against the JAX custom VJP (dense-weight,
+    scatter-free): the feature gradient, with the grid detached."""
+    rng = np.random.default_rng(8)
+    feat = rng.normal(size=(2, 9, 11, 5)).astype(np.float32)       # NHWC
+    grid = rng.uniform(-1.2, 1.2, (2, 50, 2)).astype(np.float32)  # some outside
+    g = rng.normal(size=(2, 50, 5)).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: point_sample_ng(f, jnp.asarray(grid), False, "bilinear"),
+                     jnp.asarray(feat))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    f = torch.from_numpy(feat.transpose(0, 3, 1, 2).copy()).requires_grad_()
+    t_grid = torch.from_numpy(grid).requires_grad_()
+    torch_point_sample(f, t_grid, False, "bilinear").backward(torch.from_numpy(g))
+    assert t_grid.grad is None
+    np.testing.assert_allclose(f.grad.numpy().transpose(0, 2, 3, 1), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_emit_line_only_matches_jax(bp_pair):
+    """The teacher-forced stage-2 pass, with x10-scale params; the second
+    image's step rounds to 0, where the on-step remainder is NaN and no point
+    is flagged (vaeplay_tpu/models/bp.py:124-130)."""
+    model, params, port = bp_pair
+    x = np.random.default_rng(9).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    p1 = np.array([[1.2, -0.8, 4.0, 3.1, 17.2], [-2.0, 1.5, 3.3, 4.4, 0.3]], np.float32)
+    ref = jax.device_get(model.apply({"params": params}, jnp.asarray(x), jnp.asarray(p1),
+                                     train=False, method=model.emit_line_only))
+    with torch.no_grad():
+        got = port.emit_line_only(torch.from_numpy(x), torch.from_numpy(p1))
+    assert sorted(got) == sorted(ref) == ["if_triggers", "line_params", "sample_infos"]
+    for name in ref:
+        np.testing.assert_allclose(got[name].numpy(), ref[name], atol=TOL, rtol=TOL,
+                                   err_msg=name)
+
+
+def _write_bp_dataset(root, rng, names=("a", "b", "c")):
+    """The reference's training layout: img/, layer/, ellipse/ and JSON
+    annotations with 720 sample rows, for a 40 x 40 image."""
+    for sub in ("img", "layer", "ellipse", "annotation"):
+        os.makedirs(root / sub)
+    for name in names:
+        Image.fromarray(rng.integers(0, 256, (40, 40), dtype=np.uint8)).save(root / "img" / f"{name}.png")
+        Image.fromarray(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)).save(
+            root / "layer" / f"{name}.png")
+        Image.fromarray(np.zeros((40, 40), np.uint8)).save(root / "ellipse" / f"{name}.png")
+        samples = np.concatenate([(rng.uniform(size=(720, 1)) < 0.1),
+                                  rng.uniform(0, 40, (720, 2)), rng.normal(size=(720, 2)),
+                                  rng.uniform(2, 9, (720, 1))], axis=1)
+        ann = {"center_x": 20.5, "center_y": 18.0, "radius_x": 11.0, "radius_y": 9.5,
+               "step": int(rng.integers(10, 40)), "image_size": 40, "samples": samples.tolist()}
+        (root / "annotation" / f"{name}.txt").write_text(json.dumps(ann))
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_train_loader_bit_identical(tmp_path, workers):
+    _write_bp_dataset(tmp_path, np.random.default_rng(10))
+    ref = jax_data.BPDataset(str(tmp_path), 32)
+    got = torch_data.BPDataset(str(tmp_path), 32)
+    assert len(got) == len(ref) == 3
+    for a, b in zip(ref.epoch_batches(2, seed=5, workers=workers),
+                    got.epoch_batches(2, seed=5, workers=workers)):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.shape[0] == 2
+            np.testing.assert_array_equal(x, y)
+
+
+def test_synthetic_epoch_batches_bit_identical():
+    a = list(jax_data.SyntheticEmitDataset(img_size=32, data_size=6).epoch_batches(2, seed=3))
+    b = list(torch_data.SyntheticEmitDataset(img_size=32, data_size=6).epoch_batches(2, seed=3))
+    assert len(a) == len(b) == 3
+    for x, y in zip(a, b):
+        for u, w in zip(x, y):
+            np.testing.assert_array_equal(u, w)

@@ -1,6 +1,8 @@
-"""The port's BP inference CLI (vaeplay_torch.cli.test_bp) on the CPU, its
-device rule, and the port's import boundary (no JAX, no vaeplay_tpu)."""
+"""The port's BP CLIs (vaeplay_torch.cli.test_bp and train_bp) on the CPU,
+their device rule, and the port's import boundary (no JAX, no vaeplay_tpu)."""
 
+import json
+import math
 import os
 import subprocess
 import sys
@@ -10,12 +12,23 @@ import pytest
 import torch
 from PIL import Image
 
-from vaeplay_torch.cli import test_bp
+from vaeplay_torch.cli import test_bp, train_bp
 from vaeplay_torch.device import resolve_device
 from vaeplay_torch.models import bp
 
 SMALL = ((16, 2), (32, 2), (64, 2), (64, 2), (64, 2), (64, 1), (64, 1))
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Two torch threads a process: the suite runs in several worker
+    processes at once, and one thread per core in each slows the CPU
+    training runs here many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture()
@@ -84,6 +97,50 @@ def test_no_cuda_raises_unless_cpu_is_asked_for(small_channels, monkeypatch, tmp
         resolve_device(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         test_bp.main(["--debug", "--img_size", "64", "--res_output", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_bp.main(["--img_size", "64", "--iterations", "1",
+                       "--res_output", str(tmp_path), "--model_output", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="bfloat16 is not ported yet"):
+        train_bp.main(["--device", "cpu", "--dtype", "bfloat16", "--res_output", str(tmp_path),
+                       "--model_output", str(tmp_path)])
+
+
+def _train(tmp_path, name, *extra):
+    return train_bp.main(["--device", "cpu", "--img_size", "64", "--batchsize", "2",
+                          "--iterations", "2", "--viz_freq", "1",
+                          "--res_output", str(tmp_path / name / "results"),
+                          "--model_output", str(tmp_path / name / "logs"), *extra])
+
+
+def test_train_cli_resume_and_render(small_channels, tmp_path, capsys):
+    """Two iterations of the trainer on synthetic data, the reference's run
+    layout, a resume into a second epoch, and test_bp rendering the run."""
+    run = _train(tmp_path, "first")
+    assert os.path.dirname(os.path.dirname(run)) == str(tmp_path / "first" / "logs")
+    assert os.path.basename(os.path.dirname(run)) == "BP"
+    assert sorted(os.listdir(run)) == ["0.ckpt", "metrics.jsonl", "record.txt"]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines] == [1, 2] and all(r["epoch"] == 0 for r in lines)
+    for r in lines:
+        for k in train_bp.AVG_KEYS:
+            assert math.isfinite(r[k]), (k, r)
+    assert "loss_cx=" in capsys.readouterr().out
+
+    resumed = _train(tmp_path, "second", "--epoch", "2", "--resume", run)
+    assert "resumed epoch 0 from" in capsys.readouterr().out
+    assert sorted(os.listdir(resumed)) == ["1.ckpt", "metrics.jsonl", "record.txt"]
+    with open(os.path.join(resumed, "metrics.jsonl")) as f:
+        assert [json.loads(line)["epoch"] for line in f] == [1, 1]
+    ckpt = torch.load(os.path.join(resumed, "1.ckpt"), weights_only=True)
+    assert ckpt["step"] == 8 and ckpt["scheduler"]["last_epoch"] == 8  # 2 epochs x 2 x 2
+
+    written = test_bp.main(["--device", "cpu", "--model_path", resumed, "--img_size", "64",
+                            "--batchsize", "1", "--res_output", str(tmp_path / "out")])
+    assert _pngs(written)
+    loaded = test_bp.load_model(resumed, 64, torch.device("cpu"))
+    for k, v in ckpt["model"].items():
+        assert torch.equal(loaded.state_dict()[k], v), k
 
 
 def test_port_imports_no_jax():
@@ -104,4 +161,4 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 12  # every module was walked
+    assert int(res.stdout.strip()) >= 29  # every module was walked

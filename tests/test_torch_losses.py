@@ -1,0 +1,97 @@
+"""The port's BP losses (vaeplay_torch.ops.losses) against the JAX package's:
+values and gradients against jax.grad, on the CPU at f32."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vaeplay_torch.ops import losses as TL
+from vaeplay_tpu.ops import losses as JL
+
+TOL = 1e-5  # f32, same formulas; reductions may sum in another order
+B, S, D = 3, 40, 40
+
+
+def _pt_inputs(rng, trig_rows):
+    """Logits, line params, sample info and per-degree targets whose trigger
+    column is trig_rows (B, D)."""
+    logits = rng.normal(size=(B, S, 2)).astype(np.float32)
+    line = rng.normal(size=(B, S, 4)).astype(np.float32)
+    info = np.zeros((B, S, 5), np.float32)
+    info[..., :2] = rng.uniform(-0.8, 0.8, (B, S, 2))
+    ang = rng.uniform(0, 2 * np.pi, (B, S))
+    info[..., 2], info[..., 3] = np.cos(ang), np.sin(ang)
+    # degree indices with a fraction, truncated by the gather; some repeat
+    info[..., 4] = rng.integers(0, D, (B, S)) + rng.uniform(0, 0.99, (B, S))
+    gt = np.zeros((B, D, 6), np.float32)
+    gt[..., 0] = trig_rows
+    gt[..., 1:3] = rng.uniform(-0.9, 0.9, (B, D, 2))
+    tang = rng.uniform(0, 2 * np.pi, (B, D))
+    gt[..., 3], gt[..., 4] = np.cos(tang), np.sin(tang)
+    # point 0 of image 1 faces its target's direction: a dot product of 1
+    # up to rounding, where the clip of arccos's argument acts
+    gt[1, int(info[1, 0, 4]), 3:5] = info[1, 0, 2:4]
+    gt[..., 5] = rng.uniform(0.1, 0.3, (B, D))
+    return logits, line, info, gt
+
+
+def _check(fn_t, fn_j, diff_args, const_args):
+    """Each output's value, and the gradient of its sum over diff_args."""
+    t_args = [torch.from_numpy(a).requires_grad_() for a in diff_args]
+    t_out = fn_t(*t_args, *map(torch.from_numpy, const_args))
+    j_consts = [jnp.asarray(a) for a in const_args]
+    j_out = fn_j(*map(jnp.asarray, diff_args), *j_consts)
+    assert sorted(t_out) == sorted(j_out)
+    for key in j_out:
+        np.testing.assert_allclose(t_out[key].detach().numpy(), np.asarray(j_out[key]),
+                                   atol=TOL, rtol=TOL, err_msg=key)
+        grads_t = torch.autograd.grad(t_out[key], t_args, retain_graph=True,
+                                      allow_unused=True, materialize_grads=True)
+        grads_j = jax.grad(lambda *a: fn_j(*a, *j_consts)[key],
+                           argnums=tuple(range(len(diff_args))))(*map(jnp.asarray, diff_args))
+        for i, (gt, gj) in enumerate(zip(grads_t, grads_j)):
+            assert bool(torch.isfinite(gt).all()), (key, i)
+            np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=TOL, rtol=TOL,
+                                       err_msg=f"d {key} / d arg {i}")
+
+
+@pytest.mark.parametrize("case", ["both_classes", "no_trigger", "all_triggered"])
+def test_ellipse_pt_loss_matches_jax(case):
+    rng = np.random.default_rng({"both_classes": 0, "no_trigger": 1, "all_triggered": 2}[case])
+    trig = {"both_classes": (rng.uniform(size=(B, D)) < 0.3).astype(np.float32),
+            "no_trigger": np.zeros((B, D), np.float32),  # max(sum(mask), 1) in masked_mean
+            "all_triggered": np.ones((B, D), np.float32)}[case]
+    logits, line, info, gt = _pt_inputs(rng, trig)
+    _check(TL.ellipse_pt_loss, JL.ellipse_pt_loss, (logits, line), (info, gt))
+
+
+def test_ellipse_param_loss_matches_jax():
+    rng = np.random.default_rng(3)
+    preds = rng.normal(size=(4, 5)).astype(np.float32) * 5
+    gt = np.concatenate([rng.uniform(-0.5, 0.5, (4, 4)),
+                         rng.integers(10, 40, (4, 1))], axis=1).astype(np.float32)
+    _check(TL.ellipse_param_loss, JL.ellipse_param_loss, (preds,), (gt,))
+
+
+@pytest.mark.parametrize("name", ["masked_mean", "masked_mean_empty", "dice_loss",
+                                  "softmax_cross_entropy"])
+def test_helpers_match_jax(name):
+    rng = np.random.default_rng(4)
+    x = rng.uniform(size=(3, 7, 2)).astype(np.float32)
+    if name.startswith("masked_mean"):
+        mask = (rng.uniform(size=(3, 7, 1)) < (0.0 if name.endswith("empty") else 0.5))
+        t = TL.masked_mean(torch.from_numpy(x), torch.from_numpy(mask))
+        j = JL.masked_mean(jnp.asarray(x), jnp.asarray(mask))
+        if name.endswith("empty"):
+            assert float(t) == 0.0
+    elif name == "dice_loss":
+        y = (rng.uniform(size=x.shape) < 0.5).astype(np.float32)
+        t = TL.dice_loss(torch.from_numpy(x), torch.from_numpy(y))
+        j = JL.dice_loss(jnp.asarray(x), jnp.asarray(y))
+    else:
+        labels = rng.integers(0, 2, (3, 7)).astype(np.int32)
+        t = TL.softmax_cross_entropy(torch.from_numpy(x), torch.from_numpy(labels))
+        j = JL.softmax_cross_entropy(jnp.asarray(x), jnp.asarray(labels))
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)

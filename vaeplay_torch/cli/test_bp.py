@@ -3,11 +3,13 @@ reference test_BP.py): predicted ellipse + emit-line ray visualization.
 
     python -m vaeplay_torch.cli.test_bp --debug --gpu 0
     python -m vaeplay_torch.cli.test_bp --model_path bp.pt --path DATA --gpu 0
+    python -m vaeplay_torch.cli.test_bp --model_path logs/BP/<timestamp> --gpu 0
 
 Runs on `cuda:<--gpu>`; `--device cpu` runs on the CPU. `--model_path` reads
-a `torch.save`d state_dict with the reference's key names (the JAX CLI reads
-an orbax checkpoint instead). Without `--path` it renders one synthetic
-batch; with it, every class-3 test sample under the dataset root.
+a `torch.save`d state_dict with the reference's key names, or a run dir of
+`cli/train_bp.py`, whose latest checkpoint's model it loads (as the JAX CLI
+reads its trainer's latest orbax checkpoint). Without `--path` it renders one
+synthetic batch; with it, every class-3 test sample under the dataset root.
 """
 
 import argparse
@@ -20,7 +22,9 @@ import torch
 from vaeplay_torch.data.bp_data import BPDatasetTEST, SyntheticEmitDataset
 from vaeplay_torch.device import resolve_device
 from vaeplay_torch.eval.viz_points import draw_points, draw_rays
-from vaeplay_torch.models.bp import VALUE_WEIGHT, ComposeNet
+from vaeplay_torch.models.bp import ComposeNet
+from vaeplay_torch.ops.losses import VALUE_WEIGHT
+from vaeplay_torch.train.checkpoint import Checkpointer
 from vaeplay_torch.utils.viz import makedirs, save_image_grid
 
 # Tensors of the reference state_dict with no counterpart in the port: the
@@ -30,10 +34,16 @@ DEAD_KEY_PREFIXES = ("ellipse_predictor.convs.",)
 
 
 def load_model(model_path, img_size: int, device: torch.device) -> ComposeNet:
-    """ComposeNet on `device` in eval mode: weights from `model_path` when
-    given, else a random init from seed 0."""
+    """ComposeNet on `device` in eval mode: weights from `model_path` (a
+    state_dict file, or a trainer run dir: the model of its latest
+    checkpoint) when given, else a random init from seed 0."""
     model = ComposeNet(image_size=img_size, generator=torch.Generator().manual_seed(0))
-    if model_path:
+    if model_path and os.path.isdir(model_path):
+        ckpt = Checkpointer(model_path)
+        if ckpt.latest() is None:
+            raise FileNotFoundError(f"no checkpoints found under {model_path}")
+        model.load_state_dict(ckpt.restore(ckpt.latest())["model"])
+    elif model_path:
         sd = torch.load(model_path, map_location="cpu", weights_only=True)
         sd = {k: v for k, v in sd.items() if not k.startswith(DEAD_KEY_PREFIXES)}
         model.load_state_dict(sd)
@@ -76,7 +86,8 @@ def main(argv=None) -> List[str]:
                              "(reference test_BP.py full-dataset loop); "
                              "default: one synthetic batch")
     parser.add_argument("--model_path", type=str, dest="model_path", default=None,
-                        help="torch.save'd state_dict with the reference's key names")
+                        help="torch.save'd state_dict with the reference's key names, "
+                             "or a train_bp run dir (its latest checkpoint)")
     parser.add_argument("--debug", action="store_true", dest="debug")
     parser.add_argument("--gpu", type=int, dest="gpu", default=0)
     parser.add_argument("--device", type=str, dest="device", default=None,

@@ -1,17 +1,24 @@
-"""BP data for inference -- the port's own copy of the parts of
-vaeplay_tpu/data/bp_data.py and be_data.py that test_bp reads (reference
-datasets/dataset.py:185-191, 421-460). Pure numpy + PIL; for one seed the
+"""BP data -- the port's own copy of the parts of vaeplay_tpu/data/bp_data.py
+and be_data.py that the BP trainer and test_bp read (reference
+datasets/dataset.py:185-191, 332-460). Pure numpy + PIL; for one seed the
 synthetic batches are bit-identical to the JAX package's.
 
-The model input stacks [img, bmask, emask] as 3 channels (dataset.py:414).
+Training annotations (dataset.py:355-369) are JSON per image with
+center_x/y, radius_x/y, step and `samples` rows [trigger, x, y, dx, dy,
+length], one per half-degree sample (720); they are normalized to [-1, 1]
+coordinates and x-scale radii as dataset.py:392-407 does. The model input
+stacks [img, bmask, emask] as 3 channels (dataset.py:414).
 """
 
+import json
 import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 from PIL import Image
+
+from vaeplay_torch.data.prefetch import batched_loads
 
 SAMPLE_COUNT = 720
 
@@ -24,6 +31,57 @@ def decode_layer_mask(mask_rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     bg = (m[:, :, 0] == 255) & (m[:, :, 1] == 255) & (m[:, :, 2] == 255)
     m[bg] = 0
     return m[:, :, 0].astype(np.float32) / 255.0, m[:, :, 1].astype(np.float32) / 255.0
+
+
+class BPDataset:
+    """Host loader for the reference's img/layer/ellipse/annotation layout."""
+
+    def __init__(self, data_path: str, img_size: int):
+        self.img_size = img_size
+        self.items = []
+        for name in sorted(os.listdir(os.path.join(data_path, "img"))):
+            name = name.split(".")[0]
+            self.items.append({
+                "img": os.path.join(data_path, "img", f"{name}.png"),
+                "layer": os.path.join(data_path, "layer", f"{name}.png"),
+                "annotation": os.path.join(data_path, "annotation", f"{name}.txt"),
+            })
+
+    def __len__(self):
+        return len(self.items)
+
+    def load(self, idx: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(stacked image (S, S, 3), phase-1 params (5,), phase-2 rows (720, 6))."""
+        it = self.items[idx]
+        img = Image.open(it["img"]).convert("L")
+        scale = 1.0 / img.height
+        img = np.asarray(img.resize((self.img_size, self.img_size)), np.float32) / 255.0
+        mask = Image.open(it["layer"]).convert("RGB").resize(
+            (self.img_size, self.img_size), Image.NEAREST)
+        bmask, emask = decode_layer_mask(np.asarray(mask))
+        with open(it["annotation"]) as fp:
+            a = json.load(fp)
+        phase1 = np.array([
+            (a["center_x"] * scale - 0.5) / 0.5,
+            (a["center_y"] * scale - 0.5) / 0.5,
+            a["radius_x"] * scale / 0.5,
+            a["radius_y"] * scale / 0.5,
+            a["step"],
+        ], np.float32)
+        phase2 = np.asarray(a["samples"], np.float32)
+        phase2[:, 1] = (phase2[:, 1] * scale - 0.5) / 0.5
+        phase2[:, 2] = (phase2[:, 2] * scale - 0.5) / 0.5
+        phase2[:, 5] = phase2[:, 5] * scale / 0.5
+        return np.stack([img, bmask, emask], axis=-1), phase1, phase2[:, :6]
+
+    def epoch_batches(self, batch_size: int, seed: int = 0,
+                      workers: int = 0) -> Iterator[Tuple]:
+        """One epoch in a seeded random order; workers > 0 pools the per-sample
+        decode and annotation parse (the reference's DataLoader workers)."""
+        order = np.random.default_rng(seed).permutation(len(self))
+        for items in batched_loads(self.load, order, batch_size, workers):
+            imgs, p1, p2 = zip(*items)
+            yield np.stack(imgs), np.stack(p1), np.stack(p2)
 
 
 class BPDatasetTEST:
@@ -112,3 +170,10 @@ class SyntheticEmitDataset:
                 iy = np.clip(((ly * 0.5 + 0.5) * (n - 1)).astype(int), 0, n - 1)
                 imgs[b, iy, ix, 0] = 1.0
         return imgs, p1s, p2s
+
+    def epoch_batches(self, batch_size: int, seed: int = 0,
+                      workers: int = 0) -> Iterator[Tuple]:
+        """One epoch of seeded batches; `workers` is taken as BPDataset takes
+        it and ignored (a batch is made in one vectorized call)."""
+        for b in range(self.data_size // batch_size):
+            yield self.sample_batch(batch_size, batch_seed=seed * 10_000 + b)

@@ -28,10 +28,10 @@ from torch import nn
 from vaeplay_torch.core.layers import ConvBlock, DenseBlock, SelfAttentionBlock
 from vaeplay_torch.ops.geometry import sample_points_ellipse
 from vaeplay_torch.ops.image import point_sample_ng
+from vaeplay_torch.ops.losses import VALUE_WEIGHT
 
 SAMPLE_SCALE = 2
 SAMPLE_COUNT = int(360 * SAMPLE_SCALE)
-VALUE_WEIGHT = 10.0
 # The reference's emit-line conv pyramid (networks_BP.py:180-188) as
 # (channels, stride); ComposeNet reads it when built without emit_channels.
 EMIT_CHANNELS: Tuple[Tuple[int, int], ...] = (
@@ -213,6 +213,18 @@ class ComposeNet(nn.Module):
             x, ellipse_params.detach())
         return {
             "ellipse_params": ellipse_params,
+            "if_triggers": if_triggers,
+            "line_params": line_params,
+            "sample_infos": sample_pts,
+        }
+
+    def emit_line_only(self, x: torch.Tensor, params: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The teacher-forced stage-2 pass (reference train_BP.py:86-99): the
+        emit-line predictor alone on NHWC images x, with ground-truth ellipse
+        params at x10 scale."""
+        x = x.permute(0, 3, 1, 2).contiguous()
+        if_triggers, line_params, sample_pts = self.emit_line_predictor(x, params)
+        return {
             "if_triggers": if_triggers,
             "line_params": line_params,
             "sample_infos": sample_pts,

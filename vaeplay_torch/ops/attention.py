@@ -5,10 +5,13 @@ Port of vaeplay_tpu/ops/attention.py. Semantics (the reference's, exactly):
   attn[b, i, j] = softmax_j(q[b, i, :] . k[b, j, :])   (NO 1/sqrt(d) scaling)
   out[b, i, :]  = sum_j attn[b, i, j] * v[b, j, :]
 
-`spatial_self_attention` sends a CPU tensor to the plain version
+`spatial_self_attention` runs through the `SpatialAttention` autograd
+Function, whose forward sends a CPU tensor to the plain version
 `reference_attention` and a CUDA tensor to the hand-written kernel
 (`csrc/flash_attention.cu`, through `flash_attention`), for every N. There is
-no fallback: the kernel launches or the call raises.
+no fallback: the kernel launches or the call raises. Its backward, on either
+device, is `attention_backward`: the JAX package's recompute VJP
+(`_pallas_attention_bwd`) as plain f32 batched matrix products.
 
 Shapes are (B, N, C) throughout. `flash_attention` takes each of q, k, v in
 either of two layouts: position-major (channel stride 1, a contiguous
@@ -24,6 +27,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from vaeplay_torch.ops import _build
 
@@ -31,12 +35,19 @@ MAX_DK = 128  # the kernel's limit (MAX_DK in csrc/flash_attention.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32, or f64 for f64 inputs (which the CPU gradient checks use)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain version: (B, N, Dk), (B, N, Dk), (B, N, Dv) -> (B, N, Dv), any
-    strides. Products and softmax in f32; the result has v's dtype."""
-    energy = torch.bmm(q.float(), k.float().transpose(1, 2))
+    strides. Products and softmax in f32 (f64 for f64 inputs); the result has
+    v's dtype."""
+    ct = _compute_dtype(q)
+    energy = torch.bmm(q.to(ct), k.to(ct).transpose(1, 2))
     attn = torch.softmax(energy, dim=-1)
-    return torch.bmm(attn, v.float()).to(v.dtype)
+    return torch.bmm(attn, v.to(ct)).to(v.dtype)
 
 
 def _channel_major(name: str, t: torch.Tensor) -> bool:
@@ -70,8 +81,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         _channel_major(name, t)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("flash_attention: the CUDA kernel has no backward yet; "
-                           "run it under torch.no_grad()")
+        raise RuntimeError("flash_attention: the kernel wrapper records no gradient; call "
+                           "spatial_self_attention, whose autograd Function has the backward")
 
 
 def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
@@ -134,15 +145,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+def _bmm_like(like: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the layout of `like`: where `like` is channel-major, computed
+    as (bᵀ aᵀ)ᵀ, so the result is the transpose view of a contiguous
+    (B, C, N) and the NCHW convolution behind it takes its gradient with no
+    copy."""
+    if like.stride(2) != 1 and like.stride(1) == 1:
+        return torch.bmm(b.transpose(1, 2), a.transpose(1, 2)).transpose(1, 2)
+    return torch.bmm(a, b)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       g: torch.Tensor):
+    """(dq, dk, dv) of reference_attention at (q, k, v) for the output
+    gradient g, recomputing the softmax rather than saving it: the plain
+    counterpart of the JAX package's `_pallas_attention_bwd`. Products in f32
+    (f64 for f64 inputs) with torch.bmm on any strides; each gradient has its
+    input's dtype and, where that input is channel-major, its layout."""
+    ct = _compute_dtype(q)
+    qc, kc, vc, gc = q.to(ct), k.to(ct), v.to(ct), g.to(ct)
+    attn = torch.softmax(torch.bmm(qc, kc.transpose(1, 2)), dim=-1)  # (B, N, N)
+    dv = _bmm_like(v, attn.transpose(1, 2), gc)
+    ds = torch.bmm(gc, vc.transpose(1, 2))                           # dp
+    ds.sub_((ds * attn).sum(dim=-1, keepdim=True)).mul_(attn)        # in place: one N x N less
+    dq = _bmm_like(q, ds, kc)
+    dk = _bmm_like(k, ds.transpose(1, 2), qc)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class SpatialAttention(torch.autograd.Function):
+    """softmax(q kᵀ) v with the kernel's forward on a CUDA tensor, the plain
+    version on a CPU tensor, and `attention_backward` on both. The forward
+    saves only q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return reference_attention(q, k, v)
+        b, n, dv = v.shape
+        out = torch.empty((b, dv, n), dtype=v.dtype, device=v.device).transpose(1, 2)
+        return flash_attention(q, k, v, out=out)
+
+    @staticmethod
+    @once_differentiable  # attention_backward works in place on its N x N buffers
+    def backward(ctx, g: torch.Tensor):
+        return attention_backward(*ctx.saved_tensors, g)
+
+
 def spatial_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Unscaled softmax attention over flattened spatial (or point) positions.
+    """Unscaled softmax attention over flattened spatial (or point) positions,
+    differentiable through `SpatialAttention`.
 
     q, k: (B, N, Dk); v: (B, N, Dv), each position-major or channel-major.
     Returns (B, N, Dv). A CPU tensor takes the plain version; a CUDA tensor
     takes the kernel, which writes a channel-major result: the (B, N, Dv)
     transpose view of a contiguous (B, Dv, N)."""
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v)
-    b, n, dv = v.shape
-    out = torch.empty((b, dv, n), dtype=v.dtype, device=v.device).transpose(1, 2)
-    return flash_attention(q, k, v, out=out)
+    return SpatialAttention.apply(q, k, v)

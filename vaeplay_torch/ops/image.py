@@ -1,9 +1,10 @@
 """Image ops -- port of vaeplay_tpu/ops/image.py (the point sampler BP uses).
 
 The JAX package gathers the four bilinear corners itself and gives the
-sampler a scatter-free backward, both for the TPU. Here the forward is
-torch's own `F.grid_sample` on a (B, 1, N, 2) grid; the grid is detached on
-BP's path, and inference needs no backward.
+sampler a scatter-free backward (a custom VJP), both for the TPU. Here the
+forward is torch's own `F.grid_sample` on a (B, 1, N, 2) grid, and its own
+backward gives the gradient with respect to the features; the grid is
+detached on BP's path, so no gradient reaches it, as in the custom VJP.
 """
 
 import torch

@@ -1,0 +1,93 @@
+"""Losses -- port of the part of vaeplay_tpu/ops/losses.py that BP trains on
+(reference tools/ops.py): the ellipse parameter L1 and the per-point
+emit-line loss, with the helpers they use. Functions on tensors of any
+device; fixed-shape, mask-weighted means as in the JAX package.
+"""
+
+from typing import Dict
+
+import torch
+
+# tools/ops.py:10 -- shared coordinate scale for point/param regression heads
+VALUE_WEIGHT = 10.0
+DICE_SMOOTH = 1.0  # tools/ops.py:12
+
+
+def value_scaled(params: torch.Tensor) -> torch.Tensor:
+    """Ellipse params (B, >=4) with cx, cy, rx, ry multiplied by VALUE_WEIGHT
+    (the scale the ellipse head regresses and stage 2 takes)."""
+    return torch.cat([params[:, :4] * VALUE_WEIGHT, params[:, 4:]], dim=1)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over the elements where mask (broadcastable to x) is
+    truthy; an empty mask gives 0 (the sum is divided by max(sum(mask), 1))."""
+    mask = mask.to(x.dtype).expand(x.shape)
+    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-element CE with integer labels (= F.cross_entropy, no reduction)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+
+
+def dice_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Soft dice over per-sample flattened maps (reference tools/ops.py:12-19).
+    inputs, targets: (B, ...) probabilities; returns 1 - mean dice."""
+    b = inputs.shape[0]
+    iflat, tflat = inputs.reshape(b, -1), targets.reshape(b, -1)
+    inter = (iflat * tflat).sum(dim=1)
+    score = (2.0 * inter + DICE_SMOOTH) / (iflat.sum(dim=1) + tflat.sum(dim=1) + DICE_SMOOTH)
+    return 1.0 - score.mean()
+
+
+def ellipse_param_loss(preds: torch.Tensor, gt: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Reference tools/ops.py:68-81: gt[:, :4] scaled by VALUE_WEIGHT, L1 per
+    part (cx, cy, and the rest)."""
+    gt = value_scaled(gt)
+    return {
+        "loss_cx": (preds[:, 0] - gt[:, 0]).abs().mean(),
+        "loss_cy": (preds[:, 1] - gt[:, 1]).abs().mean(),
+        "loss_rest": (preds[:, 2:] - gt[:, 2:]).abs().mean(),
+    }
+
+
+def ellipse_pt_loss(
+    pred_triggers: torch.Tensor,     # (B, S, 2) trigger logits per sampled point
+    pred_line_params: torch.Tensor,  # (B, S, 4) offset_x, offset_y, theta, length
+    sample_info: torch.Tensor,       # (B, S, 5) px, py, dpx, dpy, degree index
+    gt_targets: torch.Tensor,        # (B, D, 6) per degree: trig, x, y, dx, dy, len
+) -> Dict[str, torch.Tensor]:
+    """Reference compute_ellipse_pt_loss (tools/ops.py:83-166), batched as the
+    JAX package has it. Targets are gathered per sampled point by its degree
+    index (truncated to an integer); the trigger head gets CE, split into the
+    triggered and the other points' means, plus a dice on each softmax
+    channel; the line params get L1 on [dx, dy, angle] split the same way and
+    MSE + L1 on the length over the triggered points."""
+    deg = sample_info[..., 4].to(torch.int32).long()                  # (B, S)
+    ts = torch.gather(gt_targets, 1, deg[..., None].expand(-1, -1, gt_targets.shape[-1]))
+    trig_t = ts[..., 0]                                               # (B, S)
+    tgt_param = torch.stack([
+        (ts[..., 1] - sample_info[..., 0]) * VALUE_WEIGHT,
+        (ts[..., 2] - sample_info[..., 1]) * VALUE_WEIGHT,
+        torch.arccos((ts[..., 3] * sample_info[..., 2]
+                      + ts[..., 4] * sample_info[..., 3]).clamp(-1.0, 1.0)),
+        ts[..., 5] * VALUE_WEIGHT,
+    ], dim=-1)                                                        # (B, S, 4)
+    trig_lbl = trig_t >= 0.5
+    ce = softmax_cross_entropy(pred_triggers, trig_t.to(torch.int32))  # (B, S)
+    trig_loss = masked_mean(ce, trig_lbl) + masked_mean(ce, ~trig_lbl)
+    probs = torch.softmax(pred_triggers, dim=-1)
+    # the reference feeds the concatenated (sum S,) vector to compute_dice_loss,
+    # whose per-sample flatten makes it a dice per element, averaged over points
+    d0 = dice_loss(probs[..., 0].reshape(-1, 1), (1.0 - trig_t).reshape(-1, 1))
+    d1 = dice_loss(probs[..., 1].reshape(-1, 1), trig_t.reshape(-1, 1))
+    trig_loss = (trig_loss + (d0 + d1) / 2.0) * 2.0
+
+    l1 = (pred_line_params - tgt_param).abs()
+    param_normal = (masked_mean(l1[..., :3], trig_lbl[..., None])
+                    + masked_mean(l1[..., :3], (~trig_lbl)[..., None]))
+    sq = (pred_line_params[..., 3] - tgt_param[..., 3]) ** 2
+    param_length = masked_mean(sq, trig_lbl) + masked_mean(l1[..., 3], trig_lbl)
+    return {"trig_loss": trig_loss, "param_loss": param_length + param_normal}
