@@ -36,6 +36,21 @@ Phases, in order; each raises on failure and nothing is caught:
 6. train parity -- one two-pass iteration on the card and on the CPU from
               the same weights and batch (128 px, batch 2, a narrow
               pyramid, TF32 off): the seven losses and pass 1's gradients.
+7. vae-train -- the circle VAE-GAN through the port's train_vae CLI at the
+              JAX package's benchmark shape (bench.py: 256 px, batch 128,
+              z 128, circles rendered on the card): bf16 for an epoch of 4
+              steps, a resume of it for a second, f32 for an epoch of 2;
+              every logged loss finite, a grid per epoch, a checkpoint per
+              epoch. Then the step's FLOPs from the layer shapes and its
+              bound at the bf16 and TF32 tensor rates, a warm-up and three
+              timed steps in f32 and in bf16 at PyTorch's defaults with the
+              peak device memory, and a profile of a bf16 step by kernel
+              group. The attention kernel is on no path here, and its launch
+              count must not move.
+8. vae parity -- one f32 VAE-GAN step on the card and on the CPU from the
+              same weights, circle batch and injected noise (64 px, batch
+              4, z 32, TF32 off): the five losses, every gradient and the
+              BatchNorm running buffers.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -102,6 +117,17 @@ TRAIN_PARITY = dict(img=128, batch=2,
 # losses and pass 1's gradients, card vs CPU: 1e-3 of each gradient's largest
 # magnitude (or of each loss) plus 1e-3 relative, see phase_train_parity
 TRAIN_PARITY_TOL = (1e-3, 1e-3)
+# the circle VAE-GAN at the JAX package's benchmark shape (bench.py:35-45):
+# VaeGan(img_size=256, z_size=128), batch 128; the CLI runs an epoch of
+# VAE_ITERATIONS[dtype] steps, then VAE_TIMED steps are timed after a warm-up
+VAE_IMG, VAE_BATCH, VAE_Z = 256, 128, 128
+VAE_ITERATIONS = {"bfloat16": 4, "float32": 2}
+VAE_TIMED = 3
+PEAK_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet, at 700 W
+# phase 8 on the CPU as well: 64 px, batch 4, z 32; losses, gradients and BN
+# buffers within 1e-3 of each tensor's largest magnitude plus 1e-3 relative
+VAE_PARITY = dict(img=64, batch=4, z=32)
+VAE_PARITY_TOL = (1e-3, 1e-3)
 
 
 def gpu_line() -> str:
@@ -394,27 +420,36 @@ def _time_batches(model, batches, dev, precision: str, gpu: str) -> None:
               f"incl. host-to-device copy) on {gpu}")
 
 
-def _group(kernel: str, ops) -> str:
+def _group(kernel: str, ops, transposed: bool = False) -> str:
     """The profile group of a device activity, from its name and the names of
-    the op that launched it and that op's callers (innermost first)."""
+    the op that launched it and that op's callers (innermost first);
+    `transposed`: it runs in the backward of a transposed convolution."""
     node = next((o.rsplit(": ", 1)[-1] for o in ops
                  if o.startswith("autograd::engine::evaluate_function")), "")
+    optimizer = next((o for o in ops if o.startswith("Optimizer.")), "")
     if "flash_attention" in kernel:
         return "attention kernel (forward)"
     if "Memcpy" in kernel:
         return "host-to-device copy"
-    if any(o.startswith("Optimizer.") for o in ops):
-        return "Adam (step and zero_grad)"
+    if optimizer:  # Optimizer.step#Adam.step -> Adam
+        return f"{optimizer.split('#')[-1].split('.')[0]} (step and zero_grad)"
     if node.startswith("SpatialAttentionBackward"):
         return "attention backward (bmm, softmax; plain)"
     if any(t in kernel for t in ("nchwToNhwc", "nhwcToNchw")):
         return "cuDNN NCHW<->NHWC transposes"
+    if node.startswith(("CudnnBatchNormBackward", "NativeBatchNormBackward")):
+        return "BatchNorm, backward"
+    if "aten::batch_norm" in ops:
+        return "BatchNorm, forward"
     if node.startswith("ConvolutionBackward"):
-        return "convolution dgrad/wgrad (cuDNN)"
+        return ("conv-transpose dgrad/wgrad (cuDNN)" if transposed
+                else "convolution dgrad/wgrad (cuDNN)")
+    if "aten::conv_transpose2d" in ops:
+        return "conv-transpose forward (cuDNN)"
     if any(t in kernel for t in ("conv", "fprop", "Nhwc", "Nchw")):
         return "convolution forward (cuDNN)"
     if "gemm" in kernel:
-        return "GEMMs (DenseBlocks)" + (", backward" if node else "")
+        return "GEMMs (linear layers)" + (", backward" if node else "")
     if "copy" in kernel:
         return "tensor copies (.contiguous, layout)"
     return "elementwise and other" + (", backward" if node else "")
@@ -424,7 +459,8 @@ def _profile(run, label: str, runs: int = 3) -> None:
     """Device time by kernel group per call of run(), over `runs` calls
     (after one profiled call, which pays CUPTI's start-up), against their
     wall time. Each kernel is grouped by its name and by the ops that
-    launched it (an autograd node, the optimizer)."""
+    launched it (an autograd node, the optimizer); a backward node is tied
+    to its forward op by the autograd sequence number both carry."""
     from torch.profiler import ProfilerActivity, profile
 
     for n in (1, runs):
@@ -442,17 +478,21 @@ def _profile(run, label: str, runs: int = 3) -> None:
     print(f"[{label}] profiled (PyTorch defaults): {busy:.2f} ms device busy, "
           f"{wall:.2f} ms wall, idle share {max(0.0, 1 - busy / wall):.3f}, "
           f"{sum(e.count for e in events) // runs} device activities")
+    transposed_seq = {e.sequence_nr for e in prof.events()
+                      if e.name == "aten::conv_transpose2d" and e.sequence_nr >= 0}
     groups = {}
     for e in prof.events():
         if e.device_type.name != "CPU" or not e.kernels:
             continue
-        ops, parent = [], e
+        ops, parent, transposed = [], e, False
         while parent is not None:
             ops.append(parent.name)
+            if parent.name.startswith("autograd::engine::evaluate_function"):
+                transposed = parent.sequence_nr in transposed_seq
             parent = parent.cpu_parent
         for k in e.kernels:
             if k.name != e.name:  # a user range's own span on the device
-                group = _group(k.name, ops)
+                group = _group(k.name, ops, transposed)
                 groups[group] = groups.get(group, 0.0) + k.duration / 1e3 / runs
     attributed = sum(groups.values())
     groups["(not attributed to a launching op)"] = busy - attributed
@@ -671,6 +711,204 @@ def phase_train_parity() -> None:
         raise AssertionError("the card's training iteration disagrees with the CPU's")
 
 
+def _check_vae_run(run: str, epoch: int, dtype: str) -> None:
+    """A train_vae run dir of one epoch: its checkpoint and one log line of
+    finite losses."""
+    from vaeplay_torch.cli import train_vae
+    from vaeplay_torch.train.steps_vae import METRIC_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in METRIC_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[vae-train] {dtype} epoch {epoch}: " + " ".join(
+        f"{k}={r[k]:.4f}" for k in train_vae.AVG_KEYS)
+        + f" ({r['images_per_sec']:.1f} img/s over the epoch, CLI's host clock)")
+
+
+def _vae_cli(tmp: str, name: str, dtype: str, *extra) -> str:
+    from vaeplay_torch.cli import train_vae
+
+    n = VAE_ITERATIONS[dtype]
+    t0 = time.perf_counter()
+    run = train_vae.main(["--gpu", "0", "--img_size", str(VAE_IMG), "--batchsize", str(VAE_BATCH),
+                          "--zdim", str(VAE_Z), "--data_size", str(n * VAE_BATCH),
+                          "--viz_freq", str(n), "--dtype", dtype,
+                          "--res_output", os.path.join(tmp, "vae_results"),
+                          "--model_output", os.path.join(tmp, name), *extra])
+    print(f"[vae-train] CLI run {dtype} {' '.join(extra)} (init, {n} steps, grid, checkpoint) "
+          f"{time.perf_counter() - t0:.2f} s: {run}")
+    return run
+
+
+def vae_flops(img: int, z: int) -> dict:
+    """Forward multiply-adds x 2 of one image through the VAE-GAN's training
+    forward, by sub-network, from the layer shapes: every Conv2d, transpose
+    conv and Linear the forward calls (the decoder twice, on z and z_p; the
+    discriminator twice, REC and GAN, over 3 images each), counted by hooks
+    on a forward at batch 2 on the meta device."""
+    from vaeplay_torch.models.vae_gan import VaeGan
+
+    with torch.device("meta"):
+        model = VaeGan(img_size=img, z_size=z).eval()
+    flops = {}
+
+    def count(name):
+        def hook(m, inputs, out):
+            x = inputs[0]
+            if isinstance(m, torch.nn.ConvTranspose2d):  # each input pixel to k*k outputs
+                f = 2 * x.numel() * m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            elif isinstance(m, torch.nn.Conv2d):
+                f = 2 * out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            else:
+                f = 2 * x.numel() * m.out_features
+            flops[name] = flops.get(name, 0) + f / 2  # per image
+        return hook
+
+    for group, sub in model.named_children():
+        for m in sub.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)):
+                m.register_forward_hook(count(group))
+    x = torch.zeros(2, 1, img, img, device="meta")
+    model(x, noise=(torch.zeros(2, z, device="meta"), torch.zeros(2, z, device="meta")))
+    return flops
+
+
+def _vae_timed(dtype: str, gpu: str) -> tuple:
+    """A warm-up and VAE_TIMED steps of make_circle_train_step at PyTorch's
+    defaults, each from the (B, 3) params on the host to synchronize, and
+    the peak device memory. Returns (state, step, a further batch of params
+    on the card, generator) for a profile, and the median step ms."""
+    from vaeplay_torch.cli.train_vae import build_state
+    from vaeplay_torch.data.circles import CircleDataset
+    from vaeplay_torch.train.steps_vae import make_circle_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = build_state(VAE_IMG, VAE_Z, 1e-4, 0, dev)
+    step = make_circle_train_step(state.model, VAE_IMG, resolve_dtype(dtype))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = list(CircleDataset(n=VAE_IMG, data_size=(VAE_TIMED + 2) * VAE_BATCH)
+                   .epoch_batches(VAE_BATCH))
+    times = []
+    for i, pb in enumerate(batches[:VAE_TIMED + 1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, torch.from_numpy(pb).to(dev), gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite losses: {metrics}")
+        if i:
+            times.append(ms)
+        print(f"[vae-train] {dtype} step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
+              f"{VAE_BATCH / ms * 1e3:.1f} images/s (PyTorch defaults; batch {VAE_BATCH}, "
+              f"{VAE_IMG} px, z {VAE_Z}, host clock incl. the params' copy) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[vae-train] {dtype} peak device memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights, gradients, RMSprop state, activations)")
+    return (state, step, torch.from_numpy(batches[-1]).to(dev), gen), sorted(times)[len(times) // 2]
+
+
+def phase_vae_train(tmp: str, gpu: str) -> None:
+    """The circle VAE-GAN through the train_vae CLI at bench.py's shape (256
+    px, batch 128, z 128, on-device circles): bf16 for one epoch, a resume
+    for a second, f32 for one epoch; then timed steps in both, the step's
+    FLOPs and bound, and a profile of a bf16 step by kernel group. The
+    attention kernel is on no path here: its launch count must not move."""
+    from vaeplay_torch.ops import attention
+
+    before = attention.flash_attention.launches
+    run = _vae_cli(tmp, "vae_a", "bfloat16", "--epoch", "1")
+    _check_vae_run(run, 0, "bfloat16")
+    resumed = _vae_cli(tmp, "vae_b", "bfloat16", "--epoch", "2", "--resume", run)
+    _check_vae_run(resumed, 1, "bfloat16")
+    _check_vae_run(_vae_cli(tmp, "vae_c", "float32", "--epoch", "1"), 0, "float32")
+    pngs = sorted(os.listdir(os.path.join(tmp, "vae_results")))
+    if pngs != ["0_1.png", "0_3.png", "1_3.png"] or not all(
+            os.path.getsize(os.path.join(tmp, "vae_results", p)) > 0 for p in pngs):
+        raise AssertionError(f"train_vae wrote the grids {pngs}")
+    print(f"[vae-train] grids {pngs}")
+    for name in ("vae_a", "vae_b", "vae_c"):  # checkpoints of about 1.5 GB each
+        shutil.rmtree(os.path.join(tmp, name))
+
+    from vaeplay_torch.models.vae_gan import VaeGan
+
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in VaeGan(img_size=VAE_IMG, z_size=VAE_Z).parameters())
+    flops = vae_flops(VAE_IMG, VAE_Z)
+    fwd = sum(flops.values())
+    step_flops = 3 * fwd * VAE_BATCH  # forward, then dgrad and wgrad in the backward
+    print(f"[vae-train] {n_params / 1e6:.2f} M parameters; forward GFLOP per image from the "
+          f"layer shapes: " + ", ".join(
+        f"{k} {v / 1e9:.2f}" for k, v in flops.items()) + f"; total {fwd / 1e9:.2f}; "
+        f"step (3 x forward x {VAE_BATCH}) {step_flops / 1e12:.2f} TFLOP, bound "
+        f"{step_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+        f"bf16, {step_flops / PEAK_TF32_FLOPS * 1e3:.2f} ms at "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (dense tensor-core rates, 700 W)")
+    for dtype, peak, rate in (("float32", PEAK_TF32_FLOPS, "TF32"),
+                              ("bfloat16", PEAK_BF16_FLOPS, "bf16")):
+        profiled = None  # the f32 state is freed before bf16's peak is taken
+        profiled, ms = _vae_timed(dtype, gpu)
+        print(f"[vae-train] {dtype} median step {ms:.2f} ms, {VAE_BATCH / ms * 1e3:.1f} images/s, "
+              f"{step_flops / ms / 1e9:.1f} TFLOP/s, {step_flops / peak * 1e3 / ms:.1%} of the "
+              f"{rate} bound on {gpu}")
+    state, step, pb, gen = profiled
+    _profile(lambda: step(state, pb, gen), "vae-train", runs=1)
+    del state, step, profiled
+    torch.cuda.empty_cache()
+    if attention.flash_attention.launches != before:
+        raise AssertionError("the VAE-GAN path launched the attention kernel")
+
+
+def phase_vae_parity() -> None:
+    """One f32 training step of the VAE-GAN on the card and on the CPU from
+    the same seeded weights, circle batch and injected noise (TF32 off): the
+    five losses, every gradient, and the BatchNorm running buffers after the
+    step's forward. Gradients, not weights: RMSprop's first update is about
+    10 x lr x sign(g), which turns a rounding-sized gradient into a full step."""
+    from vaeplay_torch.data.circles import CircleDataset
+    from vaeplay_torch.models.vae_gan import VaeGan
+    from vaeplay_torch.train.state import GroupedTrainState, torch_rmsprop
+    from vaeplay_torch.train.steps_vae import GROUPS, METRIC_KEYS, circle_batch, vae_gan_losses
+
+    cfg = VAE_PARITY
+    base = VaeGan(img_size=cfg["img"], z_size=cfg["z"], generator=torch.Generator().manual_seed(11))
+    raw = torch.from_numpy(next(CircleDataset(n=cfg["img"], data_size=cfg["batch"], seed=3)
+                                .epoch_batches(cfg["batch"])))
+    noise = base.draw_noise(cfg["batch"], torch.Generator().manual_seed(12), torch.device("cpu"))
+    results = []
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        model = copy.deepcopy(base).to(dev).train()
+        state = GroupedTrainState.create(model, {g: torch_rmsprop(1e-4) for g in GROUPS})
+        imgs, targets = circle_batch(cfg["img"], raw.to(dev))
+        m = vae_gan_losses(model(imgs, noise=tuple(t.to(dev) for t in noise)), imgs, targets)
+        state.zero_grad()
+        sum(m[k] for k in METRIC_KEYS[:5]).backward()
+        got = {f"grad {k}": p.grad.cpu() for k, p in model.named_parameters()}
+        got.update({f"buffer {k}": b.cpu() for k, b in model.named_buffers()
+                    if b.is_floating_point()})
+        state.apply_gradients()
+        results.append((got, {k: v.detach().cpu() for k, v in m.items()}))
+    (ref_t, ref_m), (got_t, got_m) = results
+    worst_loss, loss = max((_worst(got_m[k], ref_m[k], VAE_PARITY_TOL), k) for k in METRIC_KEYS[:5])
+    worst, name = max((_worst(got_t[k], ref_t[k], VAE_PARITY_TOL), k) for k in ref_t)
+    print(f"[vae parity] losses card vs CPU: " + " ".join(
+        f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in METRIC_KEYS[:5]))
+    print(f"[vae parity] worst loss at {worst_loss:.3f} of its bound ({loss}), worst gradient or "
+          f"BN buffer at {worst:.3f} ({name}); bound atol {VAE_PARITY_TOL[0]:g} x max |ref| + "
+          f"rtol {VAE_PARITY_TOL[1]:g} x |ref|, {len(ref_t)} tensors")
+    if worst_loss > 1 or worst > 1 or not all(
+            bool(torch.isfinite(t).all()) for t in list(got_t.values()) + list(got_m.values())):
+        raise AssertionError("the card's VAE-GAN step disagrees with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -709,8 +947,10 @@ def main(argv) -> int:
         with strict_f32():
             phase_parity(weights)
         kernel["launches"] += phase_train(tmp, gpu)
+        phase_vae_train(tmp, gpu)
     with strict_f32():
         phase_train_parity()
+        phase_vae_parity()
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

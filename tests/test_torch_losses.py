@@ -1,5 +1,5 @@
-"""The port's BP losses (vaeplay_torch.ops.losses) against the JAX package's:
-values and gradients against jax.grad, on the CPU at f32."""
+"""The port's BP and VAE-GAN losses (vaeplay_torch.ops.losses) against the
+JAX package's: values and gradients against jax.grad, on the CPU at f32."""
 
 import jax
 import jax.numpy as jnp
@@ -95,3 +95,50 @@ def test_helpers_match_jax(name):
         t = TL.softmax_cross_entropy(torch.from_numpy(x), torch.from_numpy(labels))
         j = JL.softmax_cross_entropy(jnp.asarray(x), jnp.asarray(labels))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("case", ["interior", "saturated"])
+def test_vaegan_losses_match_jax(case):
+    """Every piece, values and gradients; "saturated" puts the discriminator's
+    outputs at exactly 0 and 1, where the + 1e-3 inside the logs keeps them
+    finite (not torch's BCE clamps)."""
+    rng = np.random.default_rng({"interior": 5, "saturated": 6}[case])
+    b, z, f = 4, 8, 24
+    x = (rng.uniform(size=(b, 1, 8, 8)) < 0.5).astype(np.float32)
+    x_tilde = rng.uniform(0.05, 0.95, (b, 1, 8, 8)).astype(np.float32)
+    layer_o, layer_p = (rng.normal(size=(b, f)).astype(np.float32) for _ in range(2))
+    dc = rng.uniform(0.02, 0.98, (3, b)).astype(np.float32)
+    if case == "saturated":
+        dc[0, :2], dc[1, :2], dc[2, 2:] = 0.0, 1.0, 1.0
+        dc[0, 2:] = 1.0
+    mus, logvar = (rng.normal(size=(b, z)).astype(np.float32) for _ in range(2))
+    targets = rng.normal(size=(b, 3)).astype(np.float32) * 0.5
+    params = targets + rng.normal(size=(b, 3)).astype(np.float32) * 1.5  # both Huber branches
+    diff = (x_tilde, layer_o, layer_p, dc[0], dc[1], dc[2], mus, logvar, params)
+
+    def order(fn):
+        return lambda xt, lo, lp, d0, d1, d2, mu, lv, p, xx, tg: fn(
+            xx, xt, lo, lp, d0, d1, d2, mu, lv, tg, p)
+
+    t_out = order(TL.vaegan_losses)(*map(torch.from_numpy, diff + (x, targets)))
+    j_out = order(JL.vaegan_losses)(*map(jnp.asarray, diff + (x, targets)))
+    for key in j_out:  # the per-sample pieces themselves
+        assert bool(torch.isfinite(t_out[key]).all()), key
+        np.testing.assert_allclose(t_out[key].numpy(), np.asarray(j_out[key]), atol=TOL,
+                                   rtol=TOL, err_msg=key)
+
+    def summed(fn):
+        return lambda *a: {k: v.sum() for k, v in order(fn)(*a).items()}
+
+    _check(summed(TL.vaegan_losses), summed(JL.vaegan_losses), diff, (x, targets))
+
+
+def test_smooth_l1_matches_jax():
+    rng = np.random.default_rng(7)
+    target = rng.normal(size=(5, 3)).astype(np.float32)
+    pred = target + np.linspace(-3, 3, 15, dtype=np.float32).reshape(5, 3)  # |d| < 1 and >= 1
+    np.testing.assert_allclose(TL.smooth_l1(torch.from_numpy(pred), torch.from_numpy(target)),
+                               np.asarray(JL.smooth_l1(jnp.asarray(pred), jnp.asarray(target))),
+                               atol=TOL, rtol=TOL)
+    _check(lambda p, t: {"l": TL.smooth_l1(p, t).sum()},
+           lambda p, t: {"l": JL.smooth_l1(p, t).sum()}, (pred,), (target,))

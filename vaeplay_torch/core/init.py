@@ -6,6 +6,8 @@ Port of vaeplay_tpu/core/init.py, on torch's (out, in, kh, kw) conv and
   * Kaiming-uniform fan-in / relu for convs, zero bias
     (reference tools/ops.py:216-229, `initialize_model`).
   * Kaiming-uniform with a=sqrt(5) for linear layers (same function).
+  * U(-s, s), s = 1/sqrt(3 * fan_in), for the circle VAE-GAN
+    (reference models/networks.py:214-226, `init_parameters`).
 
 Distribution-level parity (same family and bounds), not bitwise RNG parity
 with the JAX package, is the contract: the two frameworks draw different
@@ -42,6 +44,17 @@ def conv_kaiming_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
 
 def dense_kaiming_(weight: torch.Tensor, generator: Optional[torch.Generator] = None):
     return kaiming_uniform_(weight, math.sqrt(5.0), generator)
+
+
+@torch.no_grad()
+def vaegan_uniform_(weight: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The circle VAE-GAN init (reference models/networks.py:214-226):
+    U(-s, s) with s = 1/sqrt(3 * prod(weight.shape[1:])). On torch layouts
+    that product is in*kh*kw for a conv, in for a linear and out*kh*kw for
+    a ConvTranspose2d, whose weight is (in, out, kh, kw)."""
+    scale = 1.0 / math.sqrt(3.0 * _fan_in(weight))
+    return weight.uniform_(-scale, scale, generator=generator)
 
 
 @torch.no_grad()

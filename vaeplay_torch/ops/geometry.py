@@ -1,8 +1,45 @@
-"""Geometry -- port of vaeplay_tpu/ops/geometry.py (the ellipse sampler BP uses)."""
+"""Geometry -- port of vaeplay_tpu/ops/geometry.py: the circle helpers of the
+VAE-GAN (reference tools/utils.py:13-64) and the ellipse sampler BP uses."""
 
 import math
+from typing import Dict
 
+import numpy as np
 import torch
+
+
+def generate_circle_param(rng: np.random.Generator, n: int, min_radius: int) -> Dict[str, int]:
+    """Random circle fully inside an n x n image (reference tools/utils.py:13-22)."""
+    half_n = n // 2
+    radius = int(rng.integers(low=min_radius, high=half_n - min_radius))
+    center_x = radius + int(rng.integers(low=0, high=n - 2 * radius))
+    center_y = radius + int(rng.integers(low=0, high=n - 2 * radius))
+    return {"radius": radius, "x": center_x, "y": center_y}
+
+
+def render_circle_batch(n: int, radius: torch.Tensor, center_x: torch.Tensor,
+                        center_y: torch.Tensor) -> torch.Tensor:
+    """Filled circles as f32 (B, 1, n, n) images of 0 and 1 on the device of
+    `radius`: inside = dx^2 + dy^2 <= r^2 on an f32 pixel grid (reference
+    tools/utils.py:24-42 and 66-71, value 255 -> 1.0)."""
+    coords = torch.arange(n, dtype=torch.float32, device=radius.device)
+    xv = coords[None, None, :] - center_x.float()[:, None, None]
+    yv = coords[None, :, None] - center_y.float()[:, None, None]
+    inside = (xv**2 + yv**2) <= (radius.float()[:, None, None] ** 2)
+    return inside.float()[:, None]
+
+
+def encode_circle_param(n: int, radius, center_x, center_y) -> Dict[str, torch.Tensor]:
+    """log-radius and centers in [-1, 1] (reference tools/utils.py:44-53)."""
+    half = n // 2
+    return {"radius": torch.log(radius / n), "x": (center_x - half) / half,
+            "y": (center_y - half) / half}
+
+
+def decode_circle_param(n: int, c_radius, c_x, c_y) -> Dict[str, torch.Tensor]:
+    """Inverse of encode_circle_param (reference tools/utils.py:55-64)."""
+    half = n // 2
+    return {"radius": torch.exp(c_radius) * n, "x": c_x * half + half, "y": c_y * half + half}
 
 
 def sample_points_ellipse(ellipse_params: torch.Tensor, sample_count: int = 720,

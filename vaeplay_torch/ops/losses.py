@@ -1,12 +1,15 @@
-"""Losses -- port of the part of vaeplay_tpu/ops/losses.py that BP trains on
-(reference tools/ops.py): the ellipse parameter L1 and the per-point
-emit-line loss, with the helpers they use. Functions on tensors of any
-device; fixed-shape, mask-weighted means as in the JAX package.
+"""Losses -- port of the parts of vaeplay_tpu/ops/losses.py that BP and the
+circle VAE-GAN train on: the ellipse parameter L1 and the per-point
+emit-line loss (reference tools/ops.py), the VAE-GAN's loss pieces
+(reference models/networks.py:264-281), and the helpers they use. Functions
+on tensors of any device; fixed-shape, mask-weighted means as in the JAX
+package.
 """
 
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 # tools/ops.py:10 -- shared coordinate scale for point/param regression heads
 VALUE_WEIGHT = 10.0
@@ -91,3 +94,36 @@ def ellipse_pt_loss(
     sq = (pred_line_params[..., 3] - tgt_param[..., 3]) ** 2
     param_length = masked_mean(sq, trig_lbl) + masked_mean(l1[..., 3], trig_lbl)
     return {"trig_loss": trig_loss, "param_loss": param_length + param_normal}
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise smooth L1 (Huber, beta 1), no reduction."""
+    return F.smooth_l1_loss(pred, target, reduction="none")
+
+
+def vaegan_losses(x: torch.Tensor, x_tilde: torch.Tensor, disc_layer_original: torch.Tensor,
+                  disc_layer_predicted: torch.Tensor, disc_class_original: torch.Tensor,
+                  disc_class_predicted: torch.Tensor, disc_class_sampled: torch.Tensor,
+                  mus: torch.Tensor, log_variances: torch.Tensor, targets: torch.Tensor,
+                  params: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The circle VAE-GAN's loss pieces (reference models/networks.py:264-281),
+    per sample, as the trainer composes them (train.py:54-66):
+      nle        sum of 0.5 * (x - x_tilde)^2 (a diagnostic)
+      kl         -0.5 * sum(-exp(logvar) - mu^2 + logvar + 1)
+      mse        sum of 0.5 * (layer_orig - layer_pred)^2
+      bce_*      -log(D + 1e-3) for the originals, -log(1 - D + 1e-3) for the
+                 reconstructions and the prior samples (not torch's BCE)
+      l1_param   smooth_l1(params, targets) summed, over the batch size"""
+    b = x.shape[0]
+    nle = (0.5 * (x.reshape(b, -1) - x_tilde.reshape(b, -1)) ** 2).sum(dim=1)
+    kl = -0.5 * (-torch.exp(log_variances) - mus**2 + log_variances + 1.0).sum(dim=1)
+    mse = (0.5 * (disc_layer_original - disc_layer_predicted) ** 2).sum(dim=1)
+    return {
+        "nle": nle,
+        "kl": kl,
+        "mse": mse,
+        "bce_dis_original": -torch.log(disc_class_original + 1e-3),
+        "bce_dis_predicted": -torch.log(1.0 - disc_class_predicted + 1e-3),
+        "bce_dis_sampled": -torch.log(1.0 - disc_class_sampled + 1e-3),
+        "l1_param": smooth_l1(params, targets).sum() / b,
+    }

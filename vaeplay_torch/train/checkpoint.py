@@ -3,19 +3,21 @@ on `torch.save` files in the reference's run layout
 logs/<FAMILY>/<YYYYmmdd-HHMMSS>/<epoch>.ckpt (train_BE.py:100-105,136-143).
 
 The reference saves whole pickled modules and no optimizer; here a
-checkpoint is a dict of the model's state_dict (the reference's key names),
-the optimizer's and the scheduler's, and the step count, and a run resumes
-from it. Files are written to a temporary name and renamed, so a
+checkpoint is a train state's state_dict (the model's, with the reference's
+key names, those of its optimizers and scheduler, and the step count), and
+a run resumes from it. Files are written to a temporary name and renamed, so a
 checkpoint on disk is always whole, and read with `weights_only=True`.
 """
 
 import datetime
 import os
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
-from vaeplay_torch.train.state import TrainState
+from vaeplay_torch.train.state import GroupedTrainState, TrainState
+
+State = Union[TrainState, GroupedTrainState]
 
 SUFFIX = ".ckpt"
 
@@ -59,12 +61,12 @@ class Checkpointer:
         return tags[-1] if tags else None
 
 
-def save_state(ckpt: Checkpointer, tag, state: TrainState) -> str:
-    """Save the model, optimizer, scheduler and step under `tag`."""
+def save_state(ckpt: Checkpointer, tag, state: State) -> str:
+    """Save the state (model, optimizers, scheduler, step) under `tag`."""
     return ckpt.save(tag, state.state_dict())
 
 
-def restore_state(run_dir: str, state: TrainState, tag=None) -> Tuple[TrainState, int]:
+def restore_state(run_dir: str, state: State, tag=None) -> Tuple[State, int]:
     """Load the checkpoint `tag` (default: the latest) of run_dir into a state
     of the same layout, in place; returns (state, tag). Raises when there is
     no checkpoint, and when the saved layout differs from state's (missing or

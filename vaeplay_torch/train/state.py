@@ -1,11 +1,21 @@
-"""Train state -- the port's counterpart of vaeplay_tpu/train/state.py for one
-optimizer: the model, `torch.optim.Adam` (betas (0.9, 0.999), eps 1e-8, as
-the JAX package's `torch_adam` gives optax.adam), its learning-rate schedule
-and the count of optimizer steps, saved and restored together.
+"""Train state -- the port's counterpart of vaeplay_tpu/train/state.py.
+
+  TrainState         one optimizer (BP): the model, `torch.optim.Adam` (betas
+                     (0.9, 0.999), eps 1e-8, as the JAX package's `torch_adam`
+                     gives optax.adam), its learning-rate schedule and the
+                     count of optimizer steps.
+  GroupedTrainState  one optimizer per top-level submodule (the VAE-GAN's
+                     four RMSprops), the JAX package's `grouped_transform`.
+                     The reference's retained backwards accumulate into
+                     .grad and each optimizer reads its own disjoint subset,
+                     so one backward of the summed losses, then every
+                     optimizer's step, is the same update.
+
+Each is saved and restored whole.
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Iterable, Mapping
 
 import torch
 from torch import nn
@@ -23,6 +33,13 @@ def step_lr_every_two_epochs(iterations: int) -> Callable[[int], float]:
         return 0.1 ** ((step // steps_per_epoch) // 2)
 
     return factor
+
+
+def torch_rmsprop(lr: float) -> Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]:
+    """A factory of torch.optim.RMSprop(lr, alpha=0.99, eps=1e-8), the JAX
+    package's `torch_rmsprop` (optax rmsprop with eps outside the square
+    root): sq = alpha * sq + (1 - alpha) * g^2, p -= lr * g / (sqrt(sq) + eps)."""
+    return lambda params: torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8)
 
 
 @dataclass
@@ -57,4 +74,56 @@ class TrainState:
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.scheduler.load_state_dict(sd["scheduler"])
+        self.step = int(sd["step"])
+
+
+@dataclass
+class GroupedTrainState:
+    """The model, one optimizer per top-level submodule that holds parameters
+    (by its attribute name), and `step`, the steps taken (one step of every
+    optimizer counts once). The optimizers update the model in place."""
+
+    model: nn.Module
+    optimizers: Dict[str, torch.optim.Optimizer]
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module,
+               group_optimizers: Mapping[str, Callable[[Iterable[nn.Parameter]],
+                                                       torch.optim.Optimizer]]
+               ) -> "GroupedTrainState":
+        """group_optimizers maps each submodule's name to an optimizer factory
+        (such as torch_rmsprop(lr)); raises when a parameter has no group."""
+        groups = {name for name, child in model.named_children()
+                  if next(child.parameters(), None) is not None}
+        if groups != set(group_optimizers) or next(model.parameters(recurse=False), None) is not None:
+            raise ValueError(f"optimizer groups {sorted(group_optimizers)} do not cover the "
+                             f"model's parameter groups {sorted(groups)} exactly")
+        return cls(model, {name: make(getattr(model, name).parameters())
+                           for name, make in group_optimizers.items()})
+
+    def zero_grad(self) -> None:
+        for opt in self.optimizers.values():
+            opt.zero_grad()
+
+    def apply_gradients(self) -> None:
+        """One step of every optimizer on the gradients in .grad."""
+        for opt in self.optimizers.values():
+            opt.step()
+        self.step += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"model": self.model.state_dict(),
+                "optimizers": {k: o.state_dict() for k, o in self.optimizers.items()},
+                "step": self.step}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Strict: raises when the saved model's keys or shapes, or its
+        optimizer groups, differ."""
+        if set(sd["optimizers"]) != set(self.optimizers):
+            raise ValueError(f"saved optimizer groups {sorted(sd['optimizers'])}, "
+                             f"not {sorted(self.optimizers)}")
+        self.model.load_state_dict(sd["model"])
+        for k, opt in self.optimizers.items():
+            opt.load_state_dict(sd["optimizers"][k])
         self.step = int(sd["step"])
