@@ -51,6 +51,26 @@ Phases, in order; each raises on failure and nothing is caught:
               same weights, circle batch and injected noise (64 px, batch
               4, z 32, TF32 off): the five losses, every gradient and the
               BatchNorm running buffers.
+9. be-infer -- BE (ResNet50-FPN bubble mask and edge segmentation) inference
+              through the port's test_be CLI at 512 px, batch 8, full width,
+              seeded random weights with random FrozenBatchNorm constants:
+              one CLI run that must write its two grids, then a warm-up and
+              three timed batches (host clock around the copy, forward,
+              sigmoid and synchronize), the peak device memory, the forward's
+              FLOPs and bound, and a profile by kernel group.
+10. be-train -- BE training through the port's train_be CLI at 512 px, batch
+              32, full width, bubbles rendered and augmented on the card:
+              bf16 for an epoch of 3 iterations, a resume of it for a second,
+              f32 for an epoch of 2, and test_be on the resumed run dir.
+              Then the step's FLOPs and bound, a warm-up and three timed
+              steps in f32 and in bf16 with the peak device memory, and a
+              profile of a step in each by kernel group.
+11. be parity -- one BE training step at 128 px, batch 2, the full-width
+              backbone, on the card and on the CPU from the same weights and
+              noise images (TF32 off): in f32 both losses and every BatchNorm
+              buffer, in f64 the losses, every gradient and every buffer.
+The attention kernel is on no path of phases 7-11: its launch count must
+not move there.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -128,6 +148,24 @@ PEAK_BF16_FLOPS = 989e12  # dense, NVIDIA's data sheet, at 700 W
 # buffers within 1e-3 of each tensor's largest magnitude plus 1e-3 relative
 VAE_PARITY = dict(img=64, batch=4, z=32)
 VAE_PARITY_TOL = (1e-3, 1e-3)
+# BE at the JAX CLIs' defaults: test_be batch 8, train_be batch 32, 512 px,
+# ResNet50 (3, 4, 6, 3) x 64, FPN 256; the CLI runs an epoch of
+# BE_ITERATIONS[dtype] iterations, then BE_TIMED steps are timed after a warm-up
+BE_IMG, BE_INFER_BATCH, BE_TRAIN_BATCH = 512, 8, 32
+BE_ITERATIONS = {"bfloat16": 3, "float32": 2}
+BE_TIMED = 3
+# phase 11 on the CPU as well: 128 px, batch 2, the full-width backbone; in
+# f32 the losses and BN buffers within 1e-3 of each tensor's largest
+# magnitude plus 1e-3 relative, in f64 the losses, gradients and BN buffers
+# within 1e-9 (see phase_be_parity)
+BE_PARITY = dict(img=128, batch=2)
+BE_PARITY_TOL = {torch.float32: (1e-3, 1e-3), torch.float64: (1e-9, 1e-9)}
+# fpn.layer_blocks.0's output meets aux_convs.0, a 1x1 convolution and then a
+# train-mode BatchNorm, which takes out any per-channel constant: its bias's
+# true gradient is 0 and both sides hold rounding, so it is held to the bound
+# of its layer's weight gradient
+BE_ZERO_GRADS = {"grad feature_net.backbone.fpn.layer_blocks.0.bias":
+                 "grad feature_net.backbone.fpn.layer_blocks.0.weight"}
 
 
 def gpu_line() -> str:
@@ -295,10 +333,11 @@ def _forward_bound(shape):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
-def _worst(got: torch.Tensor, ref: torch.Tensor, tol) -> float:
-    """Largest |got - ref| over atol x max |ref| + rtol x |ref|; above 1 fails."""
+def _worst(got: torch.Tensor, ref: torch.Tensor, tol, scale: float = None) -> float:
+    """Largest |got - ref| over atol x max |ref| (or x scale) + rtol x |ref|;
+    above 1 fails."""
     atol, rtol = tol
-    bound = atol * float(ref.abs().max()) + rtol * ref.abs()
+    bound = atol * (float(ref.abs().max()) if scale is None else scale) + rtol * ref.abs()
     return float(((got - ref).abs() / bound.clamp(min=1e-30)).max())
 
 
@@ -437,6 +476,10 @@ def _group(kernel: str, ops, transposed: bool = False) -> str:
         return "attention backward (bmm, softmax; plain)"
     if any(t in kernel for t in ("nchwToNhwc", "nhwcToNchw")):
         return "cuDNN NCHW<->NHWC transposes"
+    if node.startswith("AddcmulBackward") or "aten::addcmul" in ops:
+        return "FrozenBatchNorm (addcmul)" + (", backward" if node else "")
+    if node.startswith("Upsample") or any(o.startswith("aten::upsample") for o in ops):
+        return "upsampling (bilinear, nearest)" + (", backward" if node else "")
     if node.startswith(("CudnnBatchNormBackward", "NativeBatchNormBackward")):
         return "BatchNorm, backward"
     if "aten::batch_norm" in ops:
@@ -449,7 +492,7 @@ def _group(kernel: str, ops, transposed: bool = False) -> str:
     if any(t in kernel for t in ("conv", "fprop", "Nhwc", "Nchw")):
         return "convolution forward (cuDNN)"
     if "gemm" in kernel:
-        return "GEMMs (linear layers)" + (", backward" if node else "")
+        return "GEMMs (linear layers, 1x1 convolutions)" + (", backward" if node else "")
     if "copy" in kernel:
         return "tensor copies (.contiguous, layout)"
     return "elementwise and other" + (", backward" if node else "")
@@ -909,6 +952,310 @@ def phase_vae_parity() -> None:
         raise AssertionError("the card's VAE-GAN step disagrees with the CPU's")
 
 
+def random_be_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64):
+    """A seeded BE ComposeNet with every FrozenBatchNorm2d's four buffers
+    drawn (they start at identity, which would leave the backbone's norms
+    untested): weight in [0.3, 0.8], bias and running_mean in +-0.1,
+    running_var in [0.5, 1.5]."""
+    from vaeplay_torch.models.backbone import FrozenBatchNorm2d
+    from vaeplay_torch.models.be import ComposeNet
+
+    model = ComposeNet(layers, width, generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm2d):
+                for name, (lo, hi) in (("weight", (0.3, 0.8)), ("bias", (-0.1, 0.1)),
+                                       ("running_mean", (-0.1, 0.1)),
+                                       ("running_var", (0.5, 1.5))):
+                    t = getattr(m, name)
+                    t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+    return model
+
+
+def be_flops(img: int) -> dict:
+    """Multiply-adds x 2 of one image through BE's training forward and its
+    backward, by part (body, fpn, aux, heads), from the layer shapes: every
+    Conv2d the forward calls, counted by hooks on a train-mode forward at
+    batch 2 on the meta device, with the stem and layer1 frozen. The
+    backward of a convolution costs its forward once for the weight
+    gradient, if the weight trains, and once for the input gradient, if its
+    input needs one. Returns {"forward": {part: flops}, "backward": {...}}."""
+    from vaeplay_torch.models.be import ComposeNet
+    from vaeplay_torch.train.state import freeze_backbone_stem
+
+    with torch.device("meta"):
+        model = ComposeNet().train()
+    freeze_backbone_stem(model)
+    out = {"forward": {}, "backward": {}}
+
+    def count(part):
+        def hook(m, inputs, y):
+            x = inputs[0]
+            f = 2 * y.numel() // y.shape[0] * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+            out["forward"][part] = out["forward"].get(part, 0) + f
+            out["backward"][part] = out["backward"].get(part, 0) + f * (
+                int(m.weight.requires_grad) + int(x.requires_grad))
+        return hook
+
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            part = ("body" if ".body." in name else "fpn" if ".fpn." in name
+                    else "aux" if "aux_convs" in name else "heads")
+            m.register_forward_hook(count(part))
+    model(torch.zeros(2, 3, img, img, device="meta"))
+    return out
+
+
+def _be_grids(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files if f.endswith(".png"))
+
+
+def phase_be_infer(tmp: str, gpu: str) -> float:
+    """BE inference through the test_be CLI on cuda:0 at 512 px, batch 8;
+    then timed batches, the peak memory, the bound and a profile. Returns
+    the median batch ms."""
+    from vaeplay_torch.cli import test_be
+    from vaeplay_torch.data.be_data import SyntheticBubbleDataset
+
+    dev = torch.device("cuda", 0)
+    weights = os.path.join(tmp, "be_random.pt")
+    torch.save(random_be_model(0).state_dict(), weights)
+    t0 = time.perf_counter()
+    written = test_be.main(["--model_path", weights, "--gpu", "0", "--img_size", str(BE_IMG),
+                            "--batchsize", str(BE_INFER_BATCH),
+                            "--res_output", os.path.join(tmp, "be_test")])
+    print(f"[be-infer] CLI run (load, two batches of {BE_INFER_BATCH} at {BE_IMG} px, grids) "
+          f"{time.perf_counter() - t0:.2f} s; wrote {written}")
+    if len(written) != 2 or not all(os.path.getsize(p) > 0 for p in written):
+        raise AssertionError(f"test_be wrote {written}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = test_be.load_model(weights, dev)
+    ds = SyntheticBubbleDataset(img_size=BE_IMG, data_size=4 * BE_INFER_BATCH, seed=5)
+    batches = [b["imgs"] for b in ds.epoch_batches(BE_INFER_BATCH)]
+    times = []
+    for i, imgs in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        preds = test_be.predict(model, imgs, dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        for k, p in preds.items():
+            if tuple(p.shape) != (BE_INFER_BATCH, 1, BE_IMG, BE_IMG) or not bool(
+                    ((p >= 0) & (p <= 1)).all()):
+                raise AssertionError(f"{k}: shape {tuple(p.shape)} or values outside [0, 1]")
+        if i:
+            times.append(ms)
+        print(f"[be-infer] batch {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms (PyTorch "
+              f"defaults: TF32 convolutions; batch {BE_INFER_BATCH}, {BE_IMG} px, host clock incl. "
+              f"host-to-device copy and sigmoid) on {gpu}")
+    print(f"[be-infer] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights and activations)")
+    fwd = sum(be_flops(BE_IMG)["forward"].values()) * BE_INFER_BATCH
+    median = sorted(times)[len(times) // 2]
+    print(f"[be-infer] forward {fwd / 1e12:.3f} TFLOP a batch (convolutions), bound "
+          f"{fwd / PEAK_TF32_FLOPS * 1e3:.3f} ms at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32; "
+          f"median batch {median:.2f} ms, {BE_INFER_BATCH / median * 1e3:.1f} images/s, "
+          f"{fwd / PEAK_TF32_FLOPS * 1e3 / median:.1%} of the bound on {gpu}")
+    _profile(lambda: test_be.predict(model, batches[1], dev), "be-infer")
+    return median
+
+
+def _check_be_run(run: str, epoch: int, dtype: str) -> None:
+    """A train_be run dir of one epoch: its checkpoint and one log line of
+    finite losses."""
+    from vaeplay_torch.train.steps_be import METRIC_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in METRIC_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[be-train] {dtype} epoch {epoch}: " + " ".join(f"{k}={r[k]:.4f}" for k in METRIC_KEYS)
+          + f" ({r['images_per_sec']:.1f} img/s over the epoch, CLI's host clock)")
+
+
+def _be_cli(tmp: str, name: str, dtype: str, *extra) -> str:
+    from vaeplay_torch.cli import train_be
+
+    n = BE_ITERATIONS[dtype]
+    t0 = time.perf_counter()
+    run = train_be.main(["--gpu", "0", "--img_size", str(BE_IMG), "--batchsize",
+                         str(BE_TRAIN_BATCH), "--iterations", str(n), "--viz_freq", str(n),
+                         "--dtype", dtype, "--res_output", os.path.join(tmp, "be_results"),
+                         "--model_output", os.path.join(tmp, name), *extra])
+    print(f"[be-train] CLI run {dtype} {' '.join(extra)} (init, {n} iterations, grid, "
+          f"checkpoint) {time.perf_counter() - t0:.2f} s: {run}")
+    return run
+
+
+def _be_timed(dtype: str, gpu: str) -> tuple:
+    """A warm-up and BE_TIMED steps of make_bubble_train_step at PyTorch's
+    defaults, each from the (B, 5) table on the host to synchronize (render,
+    augmentation, forward, backward, Adam), and the peak device memory.
+    Returns (state, step, a further table on the card, generator) for a
+    profile, and the median step ms."""
+    from vaeplay_torch.cli.train_be import build_state
+    from vaeplay_torch.data.be_data import SyntheticBubbleDataset
+    from vaeplay_torch.train.steps_be import make_bubble_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = build_state(1e-4, 0, dev)
+    state.model.train()
+    step = make_bubble_train_step(state.model, BE_IMG, resolve_dtype(dtype))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tables = [p for p, _ in SyntheticBubbleDataset(
+        img_size=BE_IMG, data_size=(BE_TIMED + 2) * BE_TRAIN_BATCH).epoch_params(BE_TRAIN_BATCH)]
+    times = []
+    for i, table in enumerate(tables[:BE_TIMED + 1]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, torch.from_numpy(table).to(dev), gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite losses: {metrics}")
+        if i:
+            times.append(ms)
+        print(f"[be-train] {dtype} step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
+              f"{BE_TRAIN_BATCH / ms * 1e3:.1f} images/s (PyTorch defaults; batch "
+              f"{BE_TRAIN_BATCH}, {BE_IMG} px, host clock incl. the table's copy) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[be-train] {dtype} peak device memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights, gradients, Adam moments, activations)")
+    return ((state, step, torch.from_numpy(tables[-1]).to(dev), gen),
+            sorted(times)[len(times) // 2])
+
+
+def phase_be_train(tmp: str, gpu: str) -> dict:
+    """BE through the train_be CLI at 512 px, batch 32: bf16 for one epoch,
+    a resume for a second, f32 for one epoch, test_be on the resumed run
+    dir; then the step's FLOPs and bound, timed steps and a profile in each
+    dtype. Returns the median step ms by dtype."""
+    from vaeplay_torch.cli import test_be
+
+    run = _be_cli(tmp, "be_a", "bfloat16", "--epoch", "1")
+    _check_be_run(run, 0, "bfloat16")
+    resumed = _be_cli(tmp, "be_b", "bfloat16", "--epoch", "2", "--resume", run)
+    _check_be_run(resumed, 1, "bfloat16")
+    _check_be_run(_be_cli(tmp, "be_c", "float32", "--epoch", "1"), 0, "float32")
+    grids = _be_grids(os.path.join(tmp, "be_results"))
+    if sorted(os.path.basename(g) for g in grids) != ["0_2.png", "0_3.png", "1_3.png"]:
+        raise AssertionError(f"train_be wrote the grids {grids}")
+    written = test_be.main(["--model_path", resumed, "--gpu", "0", "--img_size", str(BE_IMG),
+                            "--batchsize", str(BE_INFER_BATCH),
+                            "--res_output", os.path.join(tmp, "be_trained")])
+    if len(written) != 2 or not all(os.path.getsize(p) > 0 for p in written):
+        raise AssertionError(f"test_be on the trained run dir wrote {written}")
+    print(f"[be-train] grids {grids}; test_be --model_path <run dir> wrote {written}")
+    for name in ("be_a", "be_b", "be_c"):
+        shutil.rmtree(os.path.join(tmp, name))
+
+    from vaeplay_torch.models.be import ComposeNet
+    from vaeplay_torch.train.state import is_frozen_backbone_param
+
+    with torch.device("meta"):
+        model = ComposeNet()
+        n_params = sum(p.numel() for p in model.parameters())
+        n_frozen = sum(p.numel() for n, p in model.named_parameters()
+                       if is_frozen_backbone_param(n))
+    flops = be_flops(BE_IMG)
+    fwd, bwd = sum(flops["forward"].values()), sum(flops["backward"].values())
+    step_flops = (fwd + bwd) * BE_TRAIN_BATCH
+    print(f"[be-train] {n_params / 1e6:.2f} M parameters ({n_frozen / 1e6:.2f} M frozen); "
+          f"GFLOP per image from the layer shapes, forward: " + ", ".join(
+              f"{k} {v / 1e9:.2f}" for k, v in flops["forward"].items())
+          + f" (total {fwd / 1e9:.2f}); backward: " + ", ".join(
+              f"{k} {v / 1e9:.2f}" for k, v in flops["backward"].items())
+          + f" (total {bwd / 1e9:.2f}); step ({BE_TRAIN_BATCH} images) "
+          f"{step_flops / 1e12:.2f} TFLOP, bound {step_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, {step_flops / PEAK_TF32_FLOPS * 1e3:.2f} ms "
+          f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (dense tensor-core rates, 700 W)")
+    medians = {}
+    for dtype, peak, rate in (("bfloat16", PEAK_BF16_FLOPS, "bf16"),
+                              ("float32", PEAK_TF32_FLOPS, "TF32")):
+        profiled = None  # the previous state is freed before this peak is taken
+        profiled, ms = _be_timed(dtype, gpu)
+        medians[dtype] = ms
+        print(f"[be-train] {dtype} median step {ms:.2f} ms, {BE_TRAIN_BATCH / ms * 1e3:.1f} "
+              f"images/s, {step_flops / ms / 1e9:.1f} TFLOP/s, {step_flops / peak * 1e3 / ms:.1%} "
+              f"of the {rate} bound on {gpu}")
+        state, step, table, gen = profiled
+        _profile(lambda: step(state, table, gen), f"be-train {dtype}", runs=1)
+        del state, step, table, gen
+    del profiled
+    torch.cuda.empty_cache()
+    return medians
+
+
+def phase_be_parity() -> None:
+    """One BE training step on the card and on the CPU from the same seeded
+    weights (random FrozenBatchNorm constants), noise images and bubble
+    masks, TF32 off, in f32 and in f64. f32: both losses and every buffer
+    after the step's forward (the BatchNorms' running statistics). f64: the
+    losses, every gradient and every buffer. The f32 gradients are not held:
+    they are ill-conditioned here (the aux chain's BatchNorm biases get sums
+    that nearly cancel, behind a conv and a train-mode BatchNorm), so that
+    the CPU's own f32 gradients differ from its f64 ones by up to 1.9e-2 of a
+    tensor's largest magnitude, and two f32 backends cannot agree within
+    1e-3. Gradients, not weights: Adam's first update is about lr x sign(g).
+    The images are noise, so that no convolution output is exactly 0 at a
+    ReLU; the max pool's ties sit before the frozen layer1, where no
+    gradient flows."""
+    import numpy as np
+
+    from vaeplay_torch.data.be_data import render_bubble_batch, sample_bubble_params
+    from vaeplay_torch.train.state import frozen_backbone_adam
+    from vaeplay_torch.train.steps_be import METRIC_KEYS, make_be_train_step
+
+    cfg = BE_PARITY
+    base = random_be_model(7)
+    imgs = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(cfg["batch"], 3, cfg["img"], cfg["img"])))
+    table = torch.from_numpy(sample_bubble_params(cfg["img"], cfg["batch"], seed=4)[0])
+    masks = render_bubble_batch(cfg["img"], table)[1:]
+    for dtype in (torch.float32, torch.float64):
+        results = []
+        for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+            model = copy.deepcopy(base).to(dev, dtype).train()
+            state = frozen_backbone_adam(model, 1e-4)
+            batch = [t.to(dev, dtype) for t in (imgs, *masks)]
+            _, m = make_be_train_step(model)(state, *batch)
+            got = {f"buffer {k}": b.cpu() for k, b in model.named_buffers()
+                   if b.is_floating_point()}
+            if dtype == torch.float64:
+                got.update({f"grad {k}": p.grad.cpu() for k, p in model.named_parameters()
+                            if p.grad is not None})
+            results.append((got, {k: v.cpu() for k, v in m.items()}))
+        (ref_t, ref_m), (got_t, got_m) = results
+        if sorted(ref_t) != sorted(got_t):
+            raise AssertionError("the card and the CPU computed gradients of different tensors")
+        tol = BE_PARITY_TOL[dtype]
+        worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in METRIC_KEYS)
+        worst, name = max((_worst(got_t[k], ref_t[k], tol,
+                                  float(ref_t[BE_ZERO_GRADS[k]].abs().max())
+                                  if k in BE_ZERO_GRADS else None), k) for k in ref_t)
+        n_grads = sum(k.startswith("grad") for k in ref_t)
+        label = str(dtype)[6:]
+        print(f"[be parity] {label} losses card vs CPU: " + " ".join(
+            f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in METRIC_KEYS))
+        print(f"[be parity] {label}: worst loss at {worst_loss:.2e} of its bound ({loss}), worst "
+              f"gradient or buffer at {worst:.2e} ({name}); bound atol {tol[0]:g} x max |ref| + "
+              f"rtol {tol[1]:g} x |ref|; {n_grads} gradients, {len(ref_t) - n_grads} buffers")
+        if worst_loss > 1 or worst > 1 or not all(
+                bool(torch.isfinite(t).all()) for t in list(got_t.values()) + list(got_m.values())):
+            raise AssertionError(f"the card's {label} BE step disagrees with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -937,6 +1284,8 @@ def main(argv) -> int:
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
+    from vaeplay_torch.ops import attention
+
     with strict_f32():
         kernel = phase_kernels(gpu)
         phase_kernel_backward(gpu)
@@ -948,9 +1297,18 @@ def main(argv) -> int:
             phase_parity(weights)
         kernel["launches"] += phase_train(tmp, gpu)
         phase_vae_train(tmp, gpu)
+        before = attention.flash_attention.launches
+        phase_be_infer(tmp, gpu)
+        phase_be_train(tmp, gpu)
+        if attention.flash_attention.launches != before:
+            raise AssertionError("a BE phase launched the attention kernel")
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
+        before = attention.flash_attention.launches
+        phase_be_parity()
+        if attention.flash_attention.launches != before:
+            raise AssertionError("the BE parity step launched the attention kernel")
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

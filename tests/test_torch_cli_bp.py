@@ -161,4 +161,4 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 35  # every module was walked
+    assert int(res.stdout.strip()) >= 43  # every module was walked, BE's too

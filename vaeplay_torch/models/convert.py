@@ -1,9 +1,11 @@
 """JAX (flax) parameters -> the port's state_dict.
 
-The inverse of vaeplay_tpu/models/torch_convert.py's BP and VAE-GAN mappings
-(`bp_from_torch`, `vaegan_from_torch`), for trees given as nested mappings
-of numpy arrays (for example `jax.device_get(variables["params"])`). It
-imports neither JAX nor the JAX package.
+The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN and BE
+mappings (`bp_from_torch`, `vaegan_from_torch`, `be_from_torch`, and for BE's
+backbone vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
+for trees given as nested mappings of numpy arrays (for example
+`jax.device_get(variables["params"])`). It imports neither JAX nor the JAX
+package.
 
 Layout conversions:
   conv            HWIO -> OIHW
@@ -15,6 +17,8 @@ Layout conversions:
           is permuted back
   BatchNorm       scale, bias, mean, var -> weight, bias, running_mean,
                   running_var
+  FrozenBatchNorm the `constants` scale, bias, mean, var -> the same four
+                  buffers
   gamma           as it is
 The reference's dead `ellipse_predictor.convs.*` tensors are not produced.
 """
@@ -157,4 +161,68 @@ def vaegan_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                                  ("head3", "head.3"), ("r0", "r_fc.0"), ("r1", "r_fc.1"),
                                  ("xy0", "xy_fc.0"), ("xy1", "xy_fc.1")):
         _linear(sd, f"param_encoder.{torch_name}", pe[jax_name])
+    return sd
+
+
+def _frozen_bn(sd: Dict, prefix: str, c: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(c["scale"])
+    sd[f"{prefix}.bias"] = _t(c["bias"])
+    sd[f"{prefix}.running_mean"] = _t(c["mean"])
+    sd[f"{prefix}.running_var"] = _t(c["var"])
+
+
+def _bn_convblock(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """A ConvBlock with bn="batch": `conv.0` (no bias) and the BN `conv.1`."""
+    sd[f"{prefix}.conv.0.weight"] = _t(_conv(p["conv"]["kernel"]))
+    _bn(sd, f"{prefix}.conv.1", p["norm"], s["norm"])
+
+
+def backbone_state_dict_from_jax(params: Mapping, constants: Mapping,
+                                 prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ResNetFPN's params and constants -> the port's ResNetFPN keys
+    (torchvision's vocabulary), each under `prefix`; the block counts come
+    from the tree, so slim variants convert too."""
+    sd: Dict[str, torch.Tensor] = {}
+    body, body_c = params["body"], constants["body"]
+    sd[f"{prefix}body.conv1.weight"] = _t(_conv(body["conv1"]["kernel"]))
+    _frozen_bn(sd, f"{prefix}body.bn1", body_c["bn1"])
+    for li in range(1, 5):
+        blocks = sum(1 for k in body if k.startswith(f"layer{li}_block"))
+        for bi in range(blocks):
+            src, dst = f"layer{li}_block{bi}", f"{prefix}body.layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                sd[f"{dst}.conv{ci}.weight"] = _t(_conv(body[src][f"conv{ci}"]["kernel"]))
+                _frozen_bn(sd, f"{dst}.bn{ci}", body_c[src][f"bn{ci}"])
+            if "down_conv" in body[src]:
+                sd[f"{dst}.downsample.0.weight"] = _t(_conv(body[src]["down_conv"]["kernel"]))
+                _frozen_bn(sd, f"{dst}.downsample.1", body_c[src]["down_bn"])
+    fpn = params["fpn"]
+    for i in range(4):
+        for src, dst in ((f"inner{i}", f"inner_blocks.{i}"), (f"layer{i}", f"layer_blocks.{i}")):
+            sd[f"{prefix}fpn.{dst}.weight"] = _t(_conv(fpn[src]["kernel"]))
+            sd[f"{prefix}fpn.{dst}.bias"] = _t(fpn[src]["bias"])
+    return sd
+
+
+def be_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                           constants: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/be.ComposeNet variables -> state_dict of the port's
+    ComposeNet; the inverse of torch_convert.be_from_torch. The heads'
+    pred{1,2,3} hold canonical (3, 3, C, F) kernels (SmallChannelConv3x3S1),
+    which become predictor.{0,1,2}.conv.0."""
+    fn, fn_s = params["feature_net"], batch_stats["feature_net"]
+    sd = backbone_state_dict_from_jax(fn["backbone"], constants["feature_net"]["backbone"],
+                                      "feature_net.backbone.")
+    n_aux = len([k for k in fn if k.startswith("aux")])
+    for j in range(n_aux):
+        name = f"aux{j // 2}{'ab'[j % 2]}"
+        _bn_convblock(sd, f"feature_net.aux_convs.{j}", fn[name], fn_s[name])
+    for head in ("mask_net", "edge_net"):
+        p, s = params[head], batch_stats[head]
+        for up, torch_up in (("up1", "conv1"), ("up2", "conv2")):
+            for j, name in ((0, "conv1"), (1, "conv2")):
+                _bn_convblock(sd, f"{head}.{torch_up}.conv.{j}", p[up][name], s[up][name])
+        for i in range(3):
+            sd[f"{head}.predictor.{i}.conv.0.weight"] = _t(_conv(p[f"pred{i + 1}"]["kernel"]))
+            sd[f"{head}.predictor.{i}.conv.0.bias"] = _t(p[f"pred{i + 1}"]["bias"])
     return sd

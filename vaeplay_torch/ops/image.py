@@ -1,4 +1,5 @@
-"""Image ops -- port of vaeplay_tpu/ops/image.py (the point sampler BP uses).
+"""Image ops -- port of vaeplay_tpu/ops/image.py (the point sampler BP uses,
+the max pool of BE's backbone).
 
 The JAX package gathers the four bilinear corners itself and gives the
 sampler a scatter-free backward (a custom VJP), both for the TPU. Here the
@@ -26,3 +27,9 @@ def point_sample_ng(feat: torch.Tensor, grid: torch.Tensor, align_corners: bool 
     """`grid_sample` at a non-differentiable (detached) grid, as BP's stage 2
     samples its ellipse points (reference networks_BP.py:256 detaches)."""
     return grid_sample(feat, grid.detach(), align_corners=align_corners, mode=mode)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int = None, padding: int = 0) -> torch.Tensor:
+    """NCHW max pool, torch MaxPool2d semantics: the symmetric padding is
+    -inf, as the JAX package's reduce_window pads (image.py:197-204)."""
+    return F.max_pool2d(x, window, stride=stride or window, padding=padding)

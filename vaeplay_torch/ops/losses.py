@@ -1,7 +1,8 @@
-"""Losses -- port of the parts of vaeplay_tpu/ops/losses.py that BP and the
-circle VAE-GAN train on: the ellipse parameter L1 and the per-point
+"""Losses -- port of the parts of vaeplay_tpu/ops/losses.py that BP, the
+circle VAE-GAN and BE train on: the ellipse parameter L1 and the per-point
 emit-line loss (reference tools/ops.py), the VAE-GAN's loss pieces
-(reference models/networks.py:264-281), and the helpers they use. Functions
+(reference models/networks.py:264-281), BE's mask/edge head loss
+(train_BE.py:58-60), and the helpers they use. Functions
 on tensors of any device; fixed-shape, mask-weighted means as in the JAX
 package.
 """
@@ -43,6 +44,19 @@ def dice_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     inter = (iflat * tflat).sum(dim=1)
     score = (2.0 * inter + DICE_SMOOTH) / (iflat.sum(dim=1) + tflat.sum(dim=1) + DICE_SMOOTH)
     return 1.0 - score.mean()
+
+
+def sigmoid_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross entropy on logits (= BCEWithLogitsLoss, no
+    reduction): max(x, 0) - x t + log1p(exp(-|x|))."""
+    return F.binary_cross_entropy_with_logits(logits, targets, reduction="none")
+
+
+def mask_edge_losses(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """0.5 x mean BCE-with-logits + dice(sigmoid): the BE/BC head loss
+    (reference train_BE.py:58-60)."""
+    return 0.5 * sigmoid_bce_with_logits(logits, targets).mean() + dice_loss(
+        torch.sigmoid(logits), targets)
 
 
 def ellipse_param_loss(preds: torch.Tensor, gt: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,9 +1,16 @@
 """Train state -- the port's counterpart of vaeplay_tpu/train/state.py.
 
-  TrainState         one optimizer (BP): the model, `torch.optim.Adam` (betas
-                     (0.9, 0.999), eps 1e-8, as the JAX package's `torch_adam`
-                     gives optax.adam), its learning-rate schedule and the
+  TrainState         one optimizer (BP, BE): the model, `torch.optim.Adam`
+                     (betas (0.9, 0.999), eps 1e-8, as the JAX package's
+                     `torch_adam` gives optax.adam) over the parameters that
+                     require a gradient, its learning-rate schedule and the
                      count of optimizer steps.
+  frozen_backbone_adam  BE's state: the JAX package's `frozen_backbone_adam`
+                     and `stop_frozen_gradients` (state.py:96-139) as one
+                     rule, torchvision's trainable_layers=3: every backbone's
+                     body.conv1 and body.layer1 stop requiring a gradient, so
+                     Adam skips them and no backward runs through them (XLA
+                     dead-codes that backward in the JAX package).
   GroupedTrainState  one optimizer per top-level submodule (the VAE-GAN's
                      four RMSprops), the JAX package's `grouped_transform`.
                      The reference's retained backwards accumulate into
@@ -15,7 +22,7 @@ Each is saved and restored whole.
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Mapping
+from typing import Any, Callable, Dict, Iterable, List, Mapping
 
 import torch
 from torch import nn
@@ -55,7 +62,8 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, lr: float,
                schedule: Callable[[int], float] = lambda step: 1.0) -> "TrainState":
-        optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        optimizer = torch.optim.Adam(trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         return cls(model, optimizer, LambdaLR(optimizer, schedule))
 
     def apply_gradients(self) -> None:
@@ -75,6 +83,36 @@ class TrainState:
         self.optimizer.load_state_dict(sd["optimizer"])
         self.scheduler.load_state_dict(sd["scheduler"])
         self.step = int(sd["step"])
+
+
+FROZEN_BACKBONE_MODULES = ("conv1", "layer1")  # under a backbone's `body`
+
+
+def is_frozen_backbone_param(name: str) -> bool:
+    """torchvision's trainable_layers=3 rule on a parameter name: the stem
+    conv and layer1 of a ResNet body (`...body.conv1.weight`,
+    `...body.layer1.*`) are frozen."""
+    parts = name.split(".")
+    return any(parts[i] == "body" and parts[i + 1] in FROZEN_BACKBONE_MODULES
+               for i in range(len(parts) - 1))
+
+
+def freeze_backbone_stem(model: nn.Module) -> List[str]:
+    """Turn off requires_grad on the frozen backbone parameters; returns
+    their names."""
+    names = [n for n, _ in model.named_parameters() if is_frozen_backbone_param(n)]
+    for n in names:
+        model.get_parameter(n).requires_grad_(False)
+    return names
+
+
+def frozen_backbone_adam(model: nn.Module, lr: float) -> TrainState:
+    """A TrainState whose Adam (constant lr) trains everything but the frozen
+    backbone stem and layer1 (freeze_backbone_stem); raises when the model
+    has no such parameters."""
+    if not freeze_backbone_stem(model):
+        raise ValueError("the model has no backbone body.conv1/body.layer1 parameters to freeze")
+    return TrainState.create(model, lr)
 
 
 @dataclass
