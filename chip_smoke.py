@@ -69,7 +69,28 @@ Phases, in order; each raises on failure and nothing is caught:
               backbone, on the card and on the CPU from the same weights and
               noise images (TF32 off): in f32 both losses and every BatchNorm
               buffer, in f64 the losses, every gradient and every buffer.
-The attention kernel is on no path of phases 7-11: its launch count must
+12. be-serve -- BE's manga-page serving path: a synthetic chapter of 3
+              pages (1200 x 1700 px, 6-12 drawn bubbles each, labelme files
+              and coarse masks) through the port's test_be_manga CLI at 512
+              px, full width, random FrozenBatchNorm constants: f32 on the
+              annotation and the mask route, bf16 on the annotation route,
+              every page writing its PNG; the bit-packed masks against the
+              card's thresholded make_be_eval_step maps; per page in f32 and
+              bf16 the median predict latency (uint8 upload, forward, packed
+              copy back), bubbles/s, the paste, and the bytes copied each
+              way; a profiled page.
+13. be_gan-train -- BE_GAN through the port's train_be_gan CLI at 512 px,
+              batch 16, full width, bubbles rendered on the card: bf16 for an
+              epoch of 3 iterations, a resume of it, f32 for an epoch of 2;
+              test_be_gan_manga on the resumed run dir over phase 12's
+              chapter. Then the step's FLOPs and bound, a warm-up and three
+              timed steps in f32 and bf16 with the D and G phases apart and
+              the peak device memory, and a profile of a step in each.
+14. be_gan parity -- one BE_GAN step at 128 px, batch 2, the full-width
+              backbone, on the card and on the CPU (TF32 off): in f32 the
+              seven losses and both nets' buffers, in f64 the losses, both
+              nets' gradients and every buffer.
+The attention kernel is on no path of phases 7-14: its launch count must
 not move there.
 
 It prints the card's name and power limit, one JSON line describing the
@@ -166,6 +187,20 @@ BE_PARITY_TOL = {torch.float32: (1e-3, 1e-3), torch.float64: (1e-9, 1e-9)}
 # of its layer's weight gradient
 BE_ZERO_GRADS = {"grad feature_net.backbone.fpn.layer_blocks.0.bias":
                  "grad feature_net.backbone.fpn.layer_blocks.0.weight"}
+# phase 12: a synthetic manga chapter of SERVE_PAGES pages, (w, h) px, each
+# page's crops predicted and pasted SERVE_ROUNDS times for its median; packed
+# bits may differ from the thresholded maps only where |logit| < SERVE_NEAR_ZERO
+SERVE_PAGES, SERVE_PAGE_SIZE, SERVE_ROUNDS = 3, (1200, 1700), 3
+SERVE_NEAR_ZERO = 1e-5
+# phase 13: BE_GAN at the JAX CLI's defaults (train_be_gan.py:39-43: 512 px,
+# batch 16); the CLI runs an epoch of BE_GAN_ITERATIONS[dtype] iterations
+BE_GAN_BATCH = 16
+BE_GAN_ITERATIONS = {"bfloat16": 3, "float32": 2}
+# phase 14 on the CPU as well: 128 px (the discriminator's smallest), batch
+# 2, the full-width backbone, BE_PARITY_TOL's bounds
+BE_GAN_PARITY = dict(img=128, batch=2)
+BE_GAN_ZERO_GRADS = {"grad g backbone.fpn.layer_blocks.0.bias":
+                     "grad g backbone.fpn.layer_blocks.0.weight"}
 
 
 def gpu_line() -> str:
@@ -952,15 +987,16 @@ def phase_vae_parity() -> None:
         raise AssertionError("the card's VAE-GAN step disagrees with the CPU's")
 
 
-def random_be_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64):
-    """A seeded BE ComposeNet with every FrozenBatchNorm2d's four buffers
-    drawn (they start at identity, which would leave the backbone's norms
-    untested): weight in [0.3, 0.8], bias and running_mean in +-0.1,
-    running_var in [0.5, 1.5]."""
+def random_be_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64, family: str = "be"):
+    """A seeded BE ComposeNet (the BE_GAN generator for family "be_gan") with
+    every FrozenBatchNorm2d's four buffers drawn (they start at identity,
+    which would leave the backbone's norms untested): weight in [0.3, 0.8],
+    bias and running_mean in +-0.1, running_var in [0.5, 1.5]."""
+    from vaeplay_torch.models import be, be_gan
     from vaeplay_torch.models.backbone import FrozenBatchNorm2d
-    from vaeplay_torch.models.be import ComposeNet
 
-    model = ComposeNet(layers, width, generator=torch.Generator().manual_seed(seed))
+    net = {"be": be, "be_gan": be_gan}[family].ComposeNet
+    model = net(layers, width, generator=torch.Generator().manual_seed(seed))
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -1256,6 +1292,398 @@ def phase_be_parity() -> None:
             raise AssertionError(f"the card's {label} BE step disagrees with the CPU's")
 
 
+def write_manga_tree(root: str, seed: int = 0) -> tuple:
+    """A synthetic manga chapter under root, drawn with PIL:
+    manga/Smoke/ep1/ch1/OriginSizeManga/page{i}.png, SERVE_PAGES pages of
+    SERVE_PAGE_SIZE with 6-12 bubbles each (a white ellipse with a black
+    ring and dark text strokes, one per cell of a 3 x 4 grid, on a noisy
+    gray page), each page's coarse mask in OriginSizeBubbles/ (bubble pixels
+    (255, type, 0) on white, the mask route) and a labelme file under
+    anno/Smoke/ep1/ch1/ (the annotation route). Returns (manga root,
+    annotation root, bubbles per page)."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(seed)
+    w, h = SERVE_PAGE_SIZE
+    chapter = os.path.join(root, "manga", "Smoke", "ep1", "ch1")
+    anno_dir = os.path.join(root, "anno", "Smoke", "ep1", "ch1")
+    for d in ("OriginSizeManga", "OriginSizeBubbles"):
+        os.makedirs(os.path.join(chapter, d))
+    os.makedirs(anno_dir)
+    subs = ("Oval", "Explosion", "NoFrame", "Box")
+    counts = []
+    for p in range(SERVE_PAGES):
+        page = Image.fromarray(rng.integers(150, 230, (h, w, 3), dtype=np.uint8))
+        mask = Image.new("RGB", (w, h), (255, 255, 255))
+        draw, mdraw, shapes = ImageDraw.Draw(page), ImageDraw.Draw(mask), []
+        cells = rng.permutation(12)[:int(rng.integers(6, 13))]
+        for cell in sorted(int(c) for c in cells):
+            cx, cy = (cell % 3) * 400 + 200, (cell // 3) * 425 + 212
+            rx, ry = int(rng.integers(70, 150)), int(rng.integers(70, 160))
+            box = [cx - rx, cy - ry, cx + rx, cy + ry]
+            draw.ellipse(box, fill=(255, 255, 255), outline=(0, 0, 0), width=5)
+            for line in range(int(rng.integers(2, 5))):
+                y = cy - ry // 2 + line * 22
+                draw.line([cx - rx // 2, y, cx + int(rng.integers(0, rx // 2)), y],
+                          fill=(20, 20, 20), width=6)
+            sub = subs[int(rng.integers(0, 4))]
+            mdraw.ellipse(box, fill=(255, {"Oval": 1, "Explosion": 2, "NoFrame": 3, "Box": 4}[sub], 0))
+            shapes.append({"label": "Bubble-Boundary", "sub_label": sub,
+                           "points": [box[:2], box[2:]]})
+        page.save(os.path.join(chapter, "OriginSizeManga", f"page{p}.png"))
+        mask.save(os.path.join(chapter, "OriginSizeBubbles", f"page{p}.png"))
+        with open(os.path.join(anno_dir, f"page{p}.json"), "w") as f:
+            json.dump({"imageWidth": w, "imageHeight": h, "shapes": shapes}, f)
+        counts.append(len(shapes))
+    return os.path.join(root, "manga"), os.path.join(root, "anno"), counts
+
+
+def _serve_cli(cli, out: str, label: str, *args) -> None:
+    """One run of a page-serving CLI on cuda:0 at BE_IMG, which must write
+    every page's PNG."""
+    t0 = time.perf_counter()
+    stats = cli.main(["--gpu", "0", "--img_size", str(BE_IMG), "--res_output", out, *args])
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    print(f"[be-serve] {label}: {time.perf_counter() - t0:.2f} s (load, {SERVE_PAGES} pages "
+          f"through serve_pages), {stats}; wrote {pngs}")
+    if tuple(stats) != (SERVE_PAGES, 0, 0) or len(pngs) != SERVE_PAGES or not all(
+            os.path.getsize(os.path.join(out, f)) > 0 for f in pngs):
+        raise AssertionError(f"{label} served {stats} and wrote {pngs}")
+
+
+def _check_packed_bits(model, crops, dev, compute_dtype) -> None:
+    """The packed step's bits on the card against the card's own maps: in
+    f32 the make_be_eval_step maps thresholded at 0.5, in bf16 the sign of
+    the logits of the same forward under bf16 autocast (a bf16 sigmoid
+    rounds values just below 0.5 up to it). Equal except at pixels whose
+    logit lies within SERVE_NEAR_ZERO of 0. In bf16 the pixels that leave
+    the f32 maps' side are counted too."""
+    from vaeplay_torch.ops.bits import unpack_mask_bits
+    from vaeplay_torch.train.steps_be import make_be_eval_step, make_be_eval_step_packed
+    from vaeplay_torch.utils.amp import autocast
+
+    label = str(compute_dtype)[6:]
+    x = (torch.from_numpy(crops).to(dev).float() / 255.0).permute(0, 3, 1, 2).contiguous()
+    packed = make_be_eval_step_packed(model, compute_dtype)(x)
+    maps = make_be_eval_step(model)(x)
+    with torch.no_grad(), autocast(dev, compute_dtype):
+        logits = {k: v.float() for k, v in model.eval()(x).items()}
+    for k in ("masks", "edges"):
+        bits = unpack_mask_bits(packed[k].cpu().numpy(), BE_IMG)
+        f32_side = (maps[k][:, 0] >= 0.5).cpu().numpy()
+        want = f32_side if compute_dtype == torch.float32 else (logits[k][:, 0] >= 0).cpu().numpy()
+        near = (logits[k][:, 0].abs() < SERVE_NEAR_ZERO).cpu().numpy()
+        off = bits != want
+        ref = ("thresholded make_be_eval_step maps" if compute_dtype == torch.float32
+               else "the sign of the bf16-autocast logits")
+        moved = ("" if compute_dtype == torch.float32 else
+                 f"; {int((bits != f32_side).sum())} pixels on the other side of the f32 maps")
+        print(f"[be-serve] packed {k} vs {ref} on the card ({label}): {int(off.sum())} of "
+              f"{off.size} pixels differ, {int((off & ~near).sum())} of them with |logit| >= "
+              f"{SERVE_NEAR_ZERO:g}; {int(near.sum())} pixels within {SERVE_NEAR_ZERO:g} of 0; "
+              f"share set {float(bits.mean()):.3f}{moved}")
+        if (off & ~near).any():
+            raise AssertionError(f"packed {label} {k} bits disagree with {ref}")
+
+
+def phase_be_serve(tmp: str, gpu: str) -> tuple:
+    """BE's page-serving path: test_be_manga over a synthetic manga chapter
+    at 512 px, full width (random FrozenBatchNorm constants), in f32 on the
+    annotation and the mask route and in bf16 on the annotation route; the
+    packed bits against the card's own maps, in f32 and bf16; per page the
+    latency, bubbles/s and bytes copied each way, in f32 and bf16; a
+    profiled page. Returns the tree (manga root, annotation root) for
+    phase 13."""
+    from vaeplay_torch.cli import test_be, test_be_manga
+    from vaeplay_torch.eval.predictor import make_packed_be_predict
+    from vaeplay_torch.eval.serve import load_page, paste_page
+
+    manga, anno, counts = write_manga_tree(os.path.join(tmp, "serve_tree"))
+    print(f"[be-serve] synthetic chapter: {SERVE_PAGES} pages of {SERVE_PAGE_SIZE[0]} x "
+          f"{SERVE_PAGE_SIZE[1]} px, {counts} bubbles")
+    weights = os.path.join(tmp, "be_serve.pt")
+    torch.save(random_be_model(0).state_dict(), weights)
+    common = ["--model_path", weights, "--path", manga]
+    _serve_cli(test_be_manga, os.path.join(tmp, "serve_f32"), "test_be_manga f32, annotation "
+               "route", *common, "--anno_path", anno)
+    _serve_cli(test_be_manga, os.path.join(tmp, "serve_mask"), "test_be_manga f32, mask route",
+               *common)
+    _serve_cli(test_be_manga, os.path.join(tmp, "serve_bf16"), "test_be_manga bf16, annotation "
+               "route", *common, "--anno_path", anno, "--dtype", "bfloat16")
+
+    dev = torch.device("cuda", 0)
+    model = test_be.load_model(weights, dev)
+    jobs = test_be_manga.page_jobs(manga, anno)
+    pages = [load_page(j, BE_IMG) for j in jobs]
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_packed_bits(model, pages[0]["images"], dev, dtype)
+    fwd = sum(be_flops(BE_IMG)["forward"].values())
+    out = os.path.join(tmp, "serve_timed")
+    for dtype in (torch.float32, torch.bfloat16):
+        predict = make_packed_be_predict(model, BE_IMG, compute_dtype=dtype)
+        predict(pages[0]["images"])  # warm-up
+        for job, page in zip(jobs, pages):
+            n, times, copied = page["images"].shape[0], [], []
+            for _ in range(SERVE_ROUNDS):
+                before = dict(predict.copied)
+                t0 = time.perf_counter()
+                preds = predict(page["images"])
+                t1 = time.perf_counter()
+                paste_page(job, page, preds, out)
+                times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+                copied.append({k: predict.copied[k] - before[k] for k in before})
+            pred_ms = sorted(t[0] for t in times)[len(times) // 2]
+            paste_ms = sorted(t[1] for t in times)[len(times) // 2]
+            up, down = copied[-1]["to_device"], copied[-1]["from_device"]
+            print(f"[be-serve] {str(dtype)[6:]} {job.name}: {n} bubbles, median predict "
+                  f"{pred_ms:.2f} ms (uint8 upload, forward, packed copy back, unpack), "
+                  f"{n / pred_ms * 1e3:.1f} bubbles/s, paste and PNG {paste_ms:.2f} ms; copied "
+                  f"{up} B to the card, {down} B back ({down / (2 * n * BE_IMG * BE_IMG * 4):.5f} "
+                  f"of the f32 maps); forward bound {n * fwd / PEAK_TF32_FLOPS * 1e3:.3f} ms at "
+                  f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 ({SERVE_ROUNDS} rounds) on {gpu}")
+            if up != page["images"].nbytes or down * 32 != 2 * n * BE_IMG * BE_IMG * 4:
+                raise AssertionError(f"copied {up} B up and {down} B back for {n} crops")
+        if dtype == torch.float32:
+            _profile(lambda: predict(pages[1]["images"]), "be-serve")
+    os.remove(weights)
+    return manga, anno
+
+
+def be_gan_flops(img: int) -> dict:
+    """Multiply-adds x 2 of one image through each phase of the BE_GAN step,
+    {phase: (forward, backward)}, from the layer shapes: every Conv2d and
+    Linear of G and D that the phase calls, counted by hooks on a batch of 2
+    on the meta device, with G's stem and layer1 frozen. The D phase runs G
+    with no gradient and D twice with its weight gradients; the G phase runs
+    G with its gradients and D twice, the real call with no gradient and the
+    fake one with input gradients only. A layer's backward costs its forward
+    once for the weight gradient, if the phase takes it, and once for the
+    input gradient, if its input needs one."""
+    from vaeplay_torch.models.be_gan import ComposeNet, Discriminator
+    from vaeplay_torch.train.state import freeze_backbone_stem
+
+    with torch.device("meta"):
+        g, d = ComposeNet().train(), Discriminator(in_size=img).train()
+    freeze_backbone_stem(g)
+    out, phase = {"d_phase": [0, 0], "g_phase": [0, 0]}, ["d_phase"]
+
+    def hook(m, inputs, y):
+        x = inputs[0]
+        if isinstance(m, torch.nn.Conv2d):
+            f = 2 * y.numel() // y.shape[0] * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+        else:
+            f = 2 * m.in_features * m.out_features
+        out[phase[0]][0] += f
+        if torch.is_grad_enabled():
+            out[phase[0]][1] += f * (int(m.weight.requires_grad) + int(x.requires_grad))
+
+    for m in list(g.modules()) + list(d.modules()):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            m.register_forward_hook(hook)
+    x = torch.zeros(2, 3, img, img, device="meta")
+    m = torch.zeros(2, 1, img, img, device="meta")
+    with torch.no_grad():
+        p = g(x)
+    d(x, m, m)
+    d(x, p["masks"].sigmoid(), p["edges"].sigmoid())
+    phase[0] = "g_phase"
+    d.requires_grad_(False)
+    p = g(x)
+    with torch.no_grad():
+        d(x, m, m)
+    d(x, p["masks"].sigmoid(), p["edges"].sigmoid())
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _check_be_gan_run(run: str, epoch: int, dtype: str) -> None:
+    """A train_be_gan run dir of one epoch: its checkpoint and one log line
+    of the seven losses, finite."""
+    from vaeplay_torch.train.steps_be_gan import METRIC_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in METRIC_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[be_gan-train] {dtype} epoch {epoch}: " + " ".join(
+        f"{k}={r[k]:.4f}" for k in METRIC_KEYS)
+        + f" ({r['images_per_sec']:.1f} img/s over the epoch, CLI's host clock)")
+
+
+def _be_gan_cli(tmp: str, name: str, dtype: str, *extra) -> str:
+    from vaeplay_torch.cli import train_be_gan
+
+    n = BE_GAN_ITERATIONS[dtype]
+    t0 = time.perf_counter()
+    run = train_be_gan.main(["--gpu", "0", "--img_size", str(BE_IMG), "--batchsize",
+                             str(BE_GAN_BATCH), "--iterations", str(n), "--viz_freq", str(n),
+                             "--dtype", dtype, "--res_output", os.path.join(tmp, "be_gan_results"),
+                             "--model_output", os.path.join(tmp, name), *extra])
+    print(f"[be_gan-train] CLI run {dtype} {' '.join(extra)} (init, {n} iterations, grid, "
+          f"checkpoint) {time.perf_counter() - t0:.2f} s: {run}")
+    return run
+
+
+def _be_gan_timed(dtype: str, gpu: str) -> tuple:
+    """A warm-up and BE_TIMED steps of the BE_GAN step at PyTorch's defaults,
+    each batch rendered on the card from its (B, 5) table first, the D and G
+    phases timed apart on the host clock (each ending in a synchronize); the
+    peak device memory. Returns (step, state, a batch) for a profile, and the
+    median (D, G, step) ms."""
+    from vaeplay_torch.cli.train_be_gan import build_state, device_batches
+    from vaeplay_torch.data.be_data import SyntheticBubbleDataset
+    from vaeplay_torch.train.steps_be_gan import make_be_gan_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gs = build_state(BE_IMG, 1e-4, 0, dev)
+    gs.g.model.train()
+    gs.d.model.train()
+    step = make_be_gan_train_step(gs.g.model, gs.d.model, resolve_dtype(dtype))
+    ds = SyntheticBubbleDataset(img_size=BE_IMG, data_size=(BE_TIMED + 2) * BE_GAN_BATCH)
+    batches = list(device_batches(ds, BE_GAN_BATCH, 0, 0, dev))
+    times = []
+    for i, batch in enumerate(batches[:BE_TIMED + 1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs, dm = step.d_phase(gs, *batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gs, gm = step.g_phase(gs, *batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(bool(torch.isfinite(v)) for v in {**dm, **gm}.values()):
+            raise AssertionError(f"non-finite losses: {dm} {gm}")
+        ms = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t2 - t0) * 1e3)
+        if i:
+            times.append(ms)
+        print(f"[be_gan-train] {dtype} step {i}{' (warm-up)' if i == 0 else ''}: D phase "
+              f"{ms[0]:.2f} ms, G phase {ms[1]:.2f} ms, step {ms[2]:.2f} ms, "
+              f"{BE_GAN_BATCH / ms[2] * 1e3:.1f} images/s (PyTorch defaults; batch {BE_GAN_BATCH}, "
+              f"{BE_IMG} px, host clock) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[be_gan-train] {dtype} peak device memory {peak:.2f} GiB (torch.cuda."
+          f"max_memory_allocated: both nets' weights, gradients, Adam moments, activations)")
+    medians = tuple(sorted(t[j] for t in times)[len(times) // 2] for j in range(3))
+    return (step, gs, batches[-1]), medians
+
+
+def phase_be_gan_train(tmp: str, tree: tuple, gpu: str) -> dict:
+    """BE_GAN through the train_be_gan CLI at 512 px, batch 16, full width,
+    bubbles rendered on the card: bf16 for one epoch, a resume for a second,
+    f32 for one epoch; test_be_gan_manga on the resumed run dir over phase
+    12's chapter; then the step's FLOPs and bound, timed steps with the D and
+    G phases apart and a profile of a step in each dtype. Returns the median
+    (D, G, step) ms by dtype."""
+    from vaeplay_torch.cli import test_be_gan_manga
+
+    run = _be_gan_cli(tmp, "be_gan_a", "bfloat16", "--epochs", "1")
+    _check_be_gan_run(run, 0, "bfloat16")
+    resumed = _be_gan_cli(tmp, "be_gan_b", "bfloat16", "--epochs", "2", "--resume", run)
+    _check_be_gan_run(resumed, 1, "bfloat16")
+    _check_be_gan_run(_be_gan_cli(tmp, "be_gan_c", "float32", "--epochs", "1"), 0, "float32")
+    grids = _be_grids(os.path.join(tmp, "be_gan_results"))
+    if sorted(os.path.basename(g) for g in grids) != ["0_2_wgtm.png", "0_3_wgtm.png",
+                                                     "1_3_wgtm.png"]:
+        raise AssertionError(f"train_be_gan wrote the grids {grids}")
+    manga, anno = tree
+    _serve_cli(test_be_gan_manga, os.path.join(tmp, "serve_gan"), "test_be_gan_manga on the "
+               "resumed run dir", "--model_path", resumed, "--path", manga, "--anno_path", anno)
+    for name in ("be_gan_a", "be_gan_b", "be_gan_c"):
+        shutil.rmtree(os.path.join(tmp, name))
+
+    flops = be_gan_flops(BE_IMG)
+    step_flops = sum(sum(v) for v in flops.values()) * BE_GAN_BATCH
+    print(f"[be_gan-train] GFLOP per image from the layer shapes (forward, backward): " + "; ".join(
+        f"{k} {v[0] / 1e9:.2f}, {v[1] / 1e9:.2f}" for k, v in flops.items())
+        + f"; step ({BE_GAN_BATCH} images) {step_flops / 1e12:.2f} TFLOP, bound "
+        f"{step_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+        f"{step_flops / PEAK_TF32_FLOPS * 1e3:.2f} ms at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 "
+        f"(dense tensor-core rates, 700 W)")
+    medians = {}
+    for dtype, peak, rate in (("bfloat16", PEAK_BF16_FLOPS, "bf16"),
+                              ("float32", PEAK_TF32_FLOPS, "TF32")):
+        profiled = None  # the previous state is freed before this peak is taken
+        profiled, ms = _be_gan_timed(dtype, gpu)
+        medians[dtype] = ms
+        print(f"[be_gan-train] {dtype} median D phase {ms[0]:.2f} ms, G phase {ms[1]:.2f} ms, "
+              f"step {ms[2]:.2f} ms, {BE_GAN_BATCH / ms[2] * 1e3:.1f} images/s, "
+              f"{step_flops / ms[2] / 1e9:.1f} TFLOP/s, {step_flops / peak * 1e3 / ms[2]:.1%} of "
+              f"the {rate} bound on {gpu}")
+        step, gs, batch = profiled
+        _profile(lambda: step(gs, *batch), f"be_gan-train {dtype}", runs=1)
+        del step, gs, batch
+    del profiled
+    torch.cuda.empty_cache()
+    return medians
+
+
+def phase_be_gan_parity() -> None:
+    """One BE_GAN step (D phase, then G phase) on the card and on the CPU from
+    the same seeded weights (the full-width backbone with random
+    FrozenBatchNorm constants), noise images, bubble masks and labels, TF32
+    off, in f32 and f64. f32: the seven losses and both nets' buffers. f64:
+    the losses, both nets' gradients (G's from the G phase, D's from the D
+    phase) and every buffer. f32 gradients are not held, as in phase 11."""
+    import numpy as np
+
+    from vaeplay_torch.cli.train_be_gan import BETAS
+    from vaeplay_torch.data.be_data import render_bubble_batch, sample_bubble_params
+    from vaeplay_torch.models.be_gan import Discriminator
+    from vaeplay_torch.train.state import GanState, TrainState, frozen_backbone_adam
+    from vaeplay_torch.train.steps_be_gan import METRIC_KEYS, make_be_gan_train_step
+
+    cfg = BE_GAN_PARITY
+    base_g = random_be_model(8, family="be_gan")
+    base_d = Discriminator(in_size=cfg["img"], generator=torch.Generator().manual_seed(9))
+    imgs = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(cfg["batch"], 3, cfg["img"], cfg["img"])))
+    table, labels = sample_bubble_params(cfg["img"], cfg["batch"], seed=4)
+    masks = render_bubble_batch(cfg["img"], torch.from_numpy(table))[1:]
+    for dtype in (torch.float32, torch.float64):
+        results = []
+        for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+            g = copy.deepcopy(base_g).to(dev, dtype).train()
+            d = copy.deepcopy(base_d).to(dev, dtype).train()
+            gs = GanState(frozen_backbone_adam(g, 1e-4, BETAS),
+                          TrainState.create(d, 1e-5, betas=BETAS))
+            batch = [t.to(dev, dtype) for t in (imgs, *masks)] + [torch.from_numpy(labels).to(dev)]
+            _, m = make_be_gan_train_step(g, d)(gs, *batch)
+            got = {}
+            for net, model in (("g", g), ("d", d)):
+                got.update({f"buffer {net} {k}": b.cpu() for k, b in model.named_buffers()
+                            if b.is_floating_point()})
+                if dtype == torch.float64:
+                    got.update({f"grad {net} {k}": p.grad.cpu()
+                                for k, p in model.named_parameters() if p.grad is not None})
+            results.append((got, {k: v.cpu() for k, v in m.items()}))
+        (ref_t, ref_m), (got_t, got_m) = results
+        if sorted(ref_t) != sorted(got_t):
+            raise AssertionError("the card and the CPU computed gradients of different tensors")
+        tol = BE_PARITY_TOL[dtype]
+        worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in METRIC_KEYS)
+        worst, name = max((_worst(got_t[k], ref_t[k], tol,
+                                  float(ref_t[BE_GAN_ZERO_GRADS[k]].abs().max())
+                                  if k in BE_GAN_ZERO_GRADS else None), k) for k in ref_t)
+        n_grads = sum(k.startswith("grad") for k in ref_t)
+        label = str(dtype)[6:]
+        print(f"[be_gan parity] {label} losses card vs CPU: " + " ".join(
+            f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in METRIC_KEYS))
+        print(f"[be_gan parity] {label}: worst loss at {worst_loss:.2e} of its bound ({loss}), "
+              f"worst gradient or buffer at {worst:.2e} ({name}); bound atol {tol[0]:g} x max "
+              f"|ref| + rtol {tol[1]:g} x |ref|; {n_grads} gradients, {len(ref_t) - n_grads} "
+              f"buffers")
+        if worst_loss > 1 or worst > 1 or not all(
+                bool(torch.isfinite(t).all()) for t in list(got_t.values()) + list(got_m.values())):
+            raise AssertionError(f"the card's {label} BE_GAN step disagrees with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -1300,15 +1728,18 @@ def main(argv) -> int:
         before = attention.flash_attention.launches
         phase_be_infer(tmp, gpu)
         phase_be_train(tmp, gpu)
+        tree = phase_be_serve(tmp, gpu)
+        phase_be_gan_train(tmp, tree, gpu)
         if attention.flash_attention.launches != before:
-            raise AssertionError("a BE phase launched the attention kernel")
+            raise AssertionError("a BE or BE_GAN phase launched the attention kernel")
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
         before = attention.flash_attention.launches
         phase_be_parity()
+        phase_be_gan_parity()
         if attention.flash_attention.launches != before:
-            raise AssertionError("the BE parity step launched the attention kernel")
+            raise AssertionError("a BE or BE_GAN parity step launched the attention kernel")
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""The port's BP and VAE-GAN losses (vaeplay_torch.ops.losses) against the
-JAX package's: values and gradients against jax.grad, on the CPU at f32."""
+"""The port's BP, VAE-GAN and BE_GAN losses (vaeplay_torch.ops.losses)
+against the JAX package's: values and gradients against jax.grad, on the
+CPU at f32 (BE_GAN's edge loss also in f64)."""
 
 import jax
 import jax.numpy as jnp
@@ -142,3 +143,32 @@ def test_smooth_l1_matches_jax():
                                atol=TOL, rtol=TOL)
     _check(lambda p, t: {"l": TL.smooth_l1(p, t).sum()},
            lambda p, t: {"l": JL.smooth_l1(p, t).sum()}, (pred,), (target,))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 9, 13), (1, 1, 1, 4)])
+def test_laplacian_edges_matches_jax(shape):
+    """|3x3 Laplacian / 8| with zero-padded borders on an NCHW map against
+    the JAX package's on NHWC, f32, including a 1-pixel-high map."""
+    x = np.random.default_rng(shape[2]).normal(size=shape).astype(np.float32)
+    want = np.asarray(JL.laplacian_edges(jnp.asarray(np.transpose(x, (0, 2, 3, 1)))))
+    got = TL.laplacian_edges(torch.from_numpy(x))
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.transpose(want, (0, 3, 1, 2)), rtol=TOL,
+                               atol=TOL * np.abs(want).max())
+
+
+def test_edge_loss_value_and_gradient_match_jax():
+    """BE_GAN's edge loss on sigmoid maps and binary targets, value and the
+    gradient with respect to the maps, in f64 within 1e-12 relative."""
+    rng = np.random.default_rng(7)
+    maps = 1.0 / (1.0 + np.exp(-rng.normal(size=(2, 1, 12, 10))))
+    targets = (rng.uniform(size=(2, 1, 12, 10)) < 0.4).astype(np.float64)
+    nhwc = lambda a: jnp.asarray(np.transpose(a, (0, 2, 3, 1)))
+    with jax.enable_x64(True):
+        want, want_g = jax.value_and_grad(JL.edge_loss)(nhwc(maps), nhwc(targets))
+        want, want_g = float(want), np.transpose(np.asarray(want_g), (0, 3, 1, 2))
+    x = torch.from_numpy(maps).requires_grad_()
+    got = TL.edge_loss(x, torch.from_numpy(targets))
+    got.backward()
+    np.testing.assert_allclose(float(got), want, rtol=1e-12)
+    np.testing.assert_allclose(x.grad.numpy(), want_g, rtol=1e-9, atol=1e-12 * np.abs(want_g).max())

@@ -4,16 +4,17 @@ reference test_BE.py): batched eval, inputs | masks | edges grids.
     python -m vaeplay_torch.cli.test_be --debug --gpu 0
     python -m vaeplay_torch.cli.test_be --model_path be.pt --path DATA --gpu 0
     python -m vaeplay_torch.cli.test_be --model_path logs/BE/<timestamp> --gpu 0
+    python -m vaeplay_torch.cli.test_be --model_path logs/BE/<timestamp>/3 --gpu 0
 
 Runs on `cuda:<--gpu>`; `--device cpu` runs on the CPU. `--debug` builds an
 untrained net (test_BE.py:71-75, seed 0); `--model_path` reads a
-`torch.save`d state_dict with the reference's key names, or a run dir of
-`cli/train_be.py`, whose latest checkpoint's model it loads. Without `--path`
-it runs two synthetic batches; with it, every image of the "test" folder.
+`torch.save`d state_dict with the reference's key names, a run dir of
+`cli/train_be.py` (its latest checkpoint's model), or `<run dir>/<epoch>`
+(that epoch's). Without `--path` it runs two synthetic batches; with it,
+every image of the "test" folder.
 """
 
 import argparse
-import os
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -23,23 +24,21 @@ from vaeplay_torch.data.be_data import BEDataset, SyntheticBubbleDataset
 from vaeplay_torch.device import resolve_device
 from vaeplay_torch.eval.be_eval import save_test_batch
 from vaeplay_torch.models.be import ComposeNet
-from vaeplay_torch.train.checkpoint import Checkpointer
+from vaeplay_torch.train.checkpoint import load_model_path
 from vaeplay_torch.train.steps_be import make_be_eval_step
 from vaeplay_torch.utils.viz import makedirs
 
 
 def load_model(model_path, device: torch.device) -> ComposeNet:
-    """ComposeNet on `device` in eval mode: weights from `model_path` (a
-    state_dict file, or a trainer run dir: the model of its latest
-    checkpoint) when given, else the seed-0 init."""
+    """ComposeNet on `device` in eval mode: weights from `model_path` when
+    given, else the seed-0 init. model_path is a train_be run dir (its
+    latest checkpoint), `<run dir>/<epoch>` (that epoch's), a checkpoint
+    file (its "model" entry) or a bare state_dict with the reference's
+    keys (train/checkpoint.py:load_model_path)."""
     model = ComposeNet(generator=torch.Generator().manual_seed(0))
-    if model_path and os.path.isdir(model_path):
-        ckpt = Checkpointer(model_path)
-        if ckpt.latest() is None:
-            raise FileNotFoundError(f"no checkpoints found under {model_path}")
-        model.load_state_dict(ckpt.restore(ckpt.latest())["model"])
-    elif model_path:
-        model.load_state_dict(torch.load(model_path, map_location="cpu", weights_only=True))
+    if model_path:
+        saved = load_model_path(model_path)
+        model.load_state_dict(saved.get("model", saved))
     return model.to(device).eval()
 
 
@@ -74,7 +73,8 @@ def main(argv=None) -> List[str]:
                              "synthetic batches)")
     parser.add_argument("--model_path", type=str, dest="model_path", default=None,
                         help="torch.save'd state_dict with the reference's key names, "
-                             "or a train_be run dir (its latest checkpoint)")
+                             "a train_be run dir (its latest checkpoint) or "
+                             "<run dir>/<epoch> (that epoch's)")
     parser.add_argument("--debug", action="store_true", dest="debug")
     parser.add_argument("--gpu", type=int, dest="gpu", default=0)
     parser.add_argument("--device", type=str, dest="device", default=None,

@@ -10,7 +10,7 @@ vaeplay_tpu/models/torch_convert.py reads a port state_dict unchanged:
                                        (momentum 0.1, flax's 0.9; eps 1e-5) or
                                        the parameter-free InstanceNorm2d;
                                        relu / lrelu(0.02) / tanh / sigmoid
-  DenseBlock          blocks.py:36-50  `fc.0.{weight,bias}`; lrelu slope 0.2
+  DenseBlock          blocks.py:36-50  `fc.0.weight` [`fc.0.bias`]; lrelu slope 0.2
   SelfAttentionBlock  blocks.py:67-95  SAGAN; `q`, `k`, `v` are 1x1 ConvBlocks
                                        with the default ReLU, `gamma` starts at 0
   add_coords/AddCoords blocks.py:97-112 [features, x along W, y along H]
@@ -78,15 +78,17 @@ class ConvBlock(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """linear [+ activation]; LeakyReLU slope 0.2 (reference blocks.py:36-50)."""
+    """linear [+ activation]; LeakyReLU slope 0.2 (reference blocks.py:36-50);
+    `fc.0.bias` only when bias is True."""
 
     def __init__(self, in_features: int, features: int, activate: Optional[str] = "relu",
-                 generator: Optional[torch.Generator] = None):
+                 bias: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.activate = activate
-        self.fc = nn.Sequential(nn.Linear(in_features, features))
+        self.fc = nn.Sequential(nn.Linear(in_features, features, bias=bias))
         vinit.dense_kaiming_(self.fc[0].weight, generator)
-        vinit.zeros_(self.fc[0].bias)
+        if bias:
+            vinit.zeros_(self.fc[0].bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_activation(self.fc(x), self.activate, lrelu_slope=0.2)

@@ -31,18 +31,24 @@ from vaeplay_torch.models.backbone import ResNetFPN
 Generator = Optional[torch.Generator]
 
 
+def aux_chain(target_out_channels: int, generator: Generator = None) -> nn.Sequential:
+    """The FPN level's 1x1 C->C/2 and 3x3 C/2->C/2 BN ConvBlocks, from 256
+    channels down to target_out_channels (networks_BE.py:20-26)."""
+    c, convs = 256, []
+    while c > target_out_channels:
+        convs.append(ConvBlock(c, c // 2, 1, bn="batch", generator=generator))
+        convs.append(ConvBlock(c // 2, c // 2, 3, bn="batch", generator=generator))
+        c //= 2
+    return nn.Sequential(*convs)
+
+
 class FeatureNet(nn.Module):
     def __init__(self, target_out_channels: int = 32,
                  backbone_layers: Sequence[int] = (3, 4, 6, 3), backbone_width: int = 64,
                  generator: Generator = None):
         super().__init__()
         self.backbone = ResNetFPN(backbone_layers, backbone_width, generator=generator)
-        c, convs = 256, []
-        while c > target_out_channels:
-            convs.append(ConvBlock(c, c // 2, 1, bn="batch", generator=generator))
-            convs.append(ConvBlock(c // 2, c // 2, 3, bn="batch", generator=generator))
-            c //= 2
-        self.aux_convs = nn.Sequential(*convs)
+        self.aux_convs = aux_chain(target_out_channels, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.aux_convs(self.backbone(x, levels=("0",))["0"])

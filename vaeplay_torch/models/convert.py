@@ -1,8 +1,9 @@
 """JAX (flax) parameters -> the port's state_dict.
 
-The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN and BE
-mappings (`bp_from_torch`, `vaegan_from_torch`, `be_from_torch`, and for BE's
-backbone vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
+The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN, BE and
+BE_GAN mappings (`bp_from_torch`, `vaegan_from_torch`, `be_from_torch`,
+`be_gan_from_torch`, `be_gan_disc_from_torch`, and for the backbone
+vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
 for trees given as nested mappings of numpy arrays (for example
 `jax.device_get(variables["params"])`). It imports neither JAX nor the JAX
 package.
@@ -213,16 +214,60 @@ def be_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     fn, fn_s = params["feature_net"], batch_stats["feature_net"]
     sd = backbone_state_dict_from_jax(fn["backbone"], constants["feature_net"]["backbone"],
                                       "feature_net.backbone.")
-    n_aux = len([k for k in fn if k.startswith("aux")])
+    _aux_chain(sd, "feature_net.aux_convs", fn, fn_s)
+    for head in ("mask_net", "edge_net"):
+        _masknet(sd, head, params[head], batch_stats[head])
+    return sd
+
+
+def _aux_chain(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """The JAX aux{i}a/aux{i}b BN ConvBlocks -> `<prefix>.{2i, 2i+1}`."""
+    n_aux = len([k for k in p if k.startswith("aux")])
     for j in range(n_aux):
         name = f"aux{j // 2}{'ab'[j % 2]}"
-        _bn_convblock(sd, f"feature_net.aux_convs.{j}", fn[name], fn_s[name])
+        _bn_convblock(sd, f"{prefix}.{j}", p[name], s[name])
+
+
+def _masknet(sd: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """A JAX MaskNet/EdgeNet: up1/up2 -> conv1/conv2, and pred{1,2,3}, which
+    hold canonical (3, 3, C, F) kernels (SmallChannelConv3x3S1) ->
+    predictor.{0,1,2}.conv.0."""
+    for up, torch_up in (("up1", "conv1"), ("up2", "conv2")):
+        for j, name in ((0, "conv1"), (1, "conv2")):
+            _bn_convblock(sd, f"{prefix}.{torch_up}.conv.{j}", p[up][name], s[up][name])
+    for i in range(3):
+        sd[f"{prefix}.predictor.{i}.conv.0.weight"] = _t(_conv(p[f"pred{i + 1}"]["kernel"]))
+        sd[f"{prefix}.predictor.{i}.conv.0.bias"] = _t(p[f"pred{i + 1}"]["bias"])
+
+
+def be_gan_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                               constants: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/be_gan.ComposeNet variables -> state_dict of the port's
+    BE_GAN generator; the inverse of torch_convert.be_gan_from_torch."""
+    sd = backbone_state_dict_from_jax(params["backbone"], constants["backbone"], "backbone.")
+    _aux_chain(sd, "aux_convs", params, batch_stats)
     for head in ("mask_net", "edge_net"):
-        p, s = params[head], batch_stats[head]
-        for up, torch_up in (("up1", "conv1"), ("up2", "conv2")):
-            for j, name in ((0, "conv1"), (1, "conv2")):
-                _bn_convblock(sd, f"{head}.{torch_up}.conv.{j}", p[up][name], s[up][name])
-        for i in range(3):
-            sd[f"{head}.predictor.{i}.conv.0.weight"] = _t(_conv(p[f"pred{i + 1}"]["kernel"]))
-            sd[f"{head}.predictor.{i}.conv.0.bias"] = _t(p[f"pred{i + 1}"]["bias"])
+        _masknet(sd, head, params[head], batch_stats[head])
+    return sd
+
+
+def be_gan_disc_state_dict_from_jax(params: Mapping,
+                                    batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/be_gan.Discriminator params and batch_stats -> state_dict of
+    the port's Discriminator; the inverse of torch_convert.
+    be_gan_disc_from_torch. Each MaskMapper's conv0 (SmallChannelConv3x3S2)
+    holds the canonical (3, 3, 2, 16) kernel of `convs.0`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("content_disc", "boundary_disc"):
+        p, s = params[name], batch_stats[name]
+        sd[f"{name}.convs.0.conv.0.weight"] = _t(_conv(p["conv0"]["kernel"]))
+        sd[f"{name}.convs.0.conv.0.bias"] = _t(p["conv0"]["bias"])
+        _convblock(sd, f"{name}.convs.1", p["conv1"])
+        for i in range(sum(1 for k in p if k.startswith("feat") and k.endswith("a"))):
+            for j, half in ((0, "a"), (1, "b")):
+                _bn_convblock(sd, f"{name}.feat_modules.{i}.{j}", p[f"feat{i}{half}"],
+                              s[f"feat{i}{half}"])
+        _convblock(sd, f"{name}.pooler.0", p["pool_conv"])
+    for i in range(3):
+        _linear(sd, f"predictor.{i}.fc.0", params[f"pred{i}"]["fc"])
     return sd

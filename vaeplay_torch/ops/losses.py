@@ -2,7 +2,8 @@
 circle VAE-GAN and BE train on: the ellipse parameter L1 and the per-point
 emit-line loss (reference tools/ops.py), the VAE-GAN's loss pieces
 (reference models/networks.py:264-281), BE's mask/edge head loss
-(train_BE.py:58-60), and the helpers they use. Functions
+(train_BE.py:58-60), BE_GAN's Laplacian edge loss (tools/ops.py:187-214),
+and the helpers they use. Functions
 on tensors of any device; fixed-shape, mask-weighted means as in the JAX
 package.
 """
@@ -57,6 +58,26 @@ def mask_edge_losses(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
     (reference train_BE.py:58-60)."""
     return 0.5 * sigmoid_bce_with_logits(logits, targets).mean() + dice_loss(
         torch.sigmoid(logits), targets)
+
+
+def laplacian_edges(x: torch.Tensor) -> torch.Tensor:
+    """|3x3 Laplacian / 8| of a (B, 1, H, W) map with zero-padded borders
+    (reference tools/ops.py:193-211), as the JAX package's shifted adds:
+    (8 y - the sum of the 8 neighbours) / 8."""
+    y = x[:, 0]
+    h, w = y.shape[1:]
+    p = F.pad(y, (1, 1, 1, 1))
+    neighbors = (p[:, :h, :w] + p[:, :h, 1:w + 1] + p[:, :h, 2:]
+                 + p[:, 1:h + 1, :w] + p[:, 1:h + 1, 2:]
+                 + p[:, 2:, :w] + p[:, 2:, 1:w + 1] + p[:, 2:, 2:])
+    return ((8.0 * y - neighbors) / 8.0).abs()[:, None]
+
+
+def edge_loss(maps: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Dice between the |Laplacian| responses of a prediction and its target
+    (reference tools/ops.py:187-214). The BE_GAN step passes sigmoid maps
+    (train_BE_GAN.py, JAX steps_be_gan.py:124-125)."""
+    return dice_loss(laplacian_edges(maps), laplacian_edges(targets))
 
 
 def ellipse_param_loss(preds: torch.Tensor, gt: torch.Tensor) -> Dict[str, torch.Tensor]:

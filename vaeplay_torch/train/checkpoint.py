@@ -15,9 +15,9 @@ from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
-from vaeplay_torch.train.state import GroupedTrainState, TrainState
+from vaeplay_torch.train.state import GanState, GroupedTrainState, TrainState
 
-State = Union[TrainState, GroupedTrainState]
+State = Union[TrainState, GroupedTrainState, GanState]
 
 SUFFIX = ".ckpt"
 
@@ -59,6 +59,25 @@ class Checkpointer:
     def latest(self) -> Optional[int]:
         tags = self.tags()
         return tags[-1] if tags else None
+
+
+def load_model_path(model_path: str) -> Any:
+    """What an inference CLI's --model_path names, loaded on the CPU: a run
+    dir -> its latest checkpoint; `<run dir>/<epoch>` -> that epoch's
+    checkpoint (the JAX package's rule, vaeplay_tpu/cli/test_be.py:33-35);
+    any other path -> that file (a checkpoint, or a bare state_dict)."""
+    if os.path.isdir(model_path):
+        ckpt = Checkpointer(model_path)
+        if ckpt.latest() is None:
+            raise FileNotFoundError(f"no checkpoints found under {model_path}")
+        return ckpt.restore(ckpt.latest())
+    run_dir, tag = os.path.split(model_path)
+    if tag.isdigit() and not os.path.exists(model_path):
+        ckpt = Checkpointer(run_dir or ".")
+        if not os.path.isfile(ckpt.path(tag)):
+            raise FileNotFoundError(f"no checkpoint of epoch {tag}: {ckpt.path(tag)}")
+        return ckpt.restore(tag)
+    return torch.load(model_path, map_location="cpu", weights_only=True)
 
 
 def save_state(ckpt: Checkpointer, tag, state: State) -> str:

@@ -1,16 +1,18 @@
 """Train state -- the port's counterpart of vaeplay_tpu/train/state.py.
 
   TrainState         one optimizer (BP, BE): the model, `torch.optim.Adam`
-                     (betas (0.9, 0.999), eps 1e-8, as the JAX package's
-                     `torch_adam` gives optax.adam) over the parameters that
-                     require a gradient, its learning-rate schedule and the
-                     count of optimizer steps.
+                     (betas (0.9, 0.999) unless given, eps 1e-8, as the JAX
+                     package's `torch_adam` gives optax.adam) over the
+                     parameters that require a gradient, its learning-rate
+                     schedule and the count of optimizer steps.
   frozen_backbone_adam  BE's state: the JAX package's `frozen_backbone_adam`
                      and `stop_frozen_gradients` (state.py:96-139) as one
                      rule, torchvision's trainable_layers=3: every backbone's
                      body.conv1 and body.layer1 stop requiring a gradient, so
                      Adam skips them and no backward runs through them (XLA
                      dead-codes that backward in the JAX package).
+  GanState           BE_GAN's generator and discriminator, a TrainState each
+                     (the JAX package's steps_be_gan.GanState).
   GroupedTrainState  one optimizer per top-level submodule (the VAE-GAN's
                      four RMSprops), the JAX package's `grouped_transform`.
                      The reference's retained backwards accumulate into
@@ -22,7 +24,7 @@ Each is saved and restored whole.
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, List, Mapping
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Tuple
 
 import torch
 from torch import nn
@@ -61,9 +63,10 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, lr: float,
-               schedule: Callable[[int], float] = lambda step: 1.0) -> "TrainState":
+               schedule: Callable[[int], float] = lambda step: 1.0,
+               betas: Tuple[float, float] = (0.9, 0.999)) -> "TrainState":
         trainable = [p for p in model.parameters() if p.requires_grad]
-        optimizer = torch.optim.Adam(trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        optimizer = torch.optim.Adam(trainable, lr=lr, betas=betas, eps=1e-8)
         return cls(model, optimizer, LambdaLR(optimizer, schedule))
 
     def apply_gradients(self) -> None:
@@ -106,13 +109,32 @@ def freeze_backbone_stem(model: nn.Module) -> List[str]:
     return names
 
 
-def frozen_backbone_adam(model: nn.Module, lr: float) -> TrainState:
-    """A TrainState whose Adam (constant lr) trains everything but the frozen
-    backbone stem and layer1 (freeze_backbone_stem); raises when the model
-    has no such parameters."""
+def frozen_backbone_adam(model: nn.Module, lr: float,
+                         betas: Tuple[float, float] = (0.9, 0.999)) -> TrainState:
+    """A TrainState whose Adam (constant lr, `betas`) trains everything but
+    the frozen backbone stem and layer1 (freeze_backbone_stem); raises when
+    the model has no such parameters."""
     if not freeze_backbone_stem(model):
         raise ValueError("the model has no backbone body.conv1/body.layer1 parameters to freeze")
-    return TrainState.create(model, lr)
+    return TrainState.create(model, lr, betas=betas)
+
+
+@dataclass
+class GanState:
+    """BE_GAN's two train states: `g` the generator's (frozen_backbone_adam),
+    `d` the discriminator's. Saved and restored whole: both models, both
+    optimizers and both step counts."""
+
+    g: TrainState
+    d: TrainState
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"g": self.g.state_dict(), "d": self.d.state_dict()}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Strict, as TrainState.load_state_dict."""
+        self.g.load_state_dict(sd["g"])
+        self.d.load_state_dict(sd["d"])
 
 
 @dataclass

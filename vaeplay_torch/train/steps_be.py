@@ -14,6 +14,7 @@ import torch
 from vaeplay_torch.data.be_data import render_bubble_batch
 from vaeplay_torch.models.be import ComposeNet
 from vaeplay_torch.ops import losses as L
+from vaeplay_torch.ops.bits import pack_mask_bits
 from vaeplay_torch.ops.warp import random_joint_rot_flip
 from vaeplay_torch.train.state import TrainState
 from vaeplay_torch.utils.amp import autocast
@@ -85,6 +86,33 @@ def make_be_eval_step(model: ComposeNet) -> Callable:
         model.eval()
         try:
             return {k: torch.sigmoid(v) for k, v in model(imgs).items()}
+        finally:
+            model.train(was_training)
+
+    return eval_step
+
+
+def make_be_eval_step_packed(model: torch.nn.Module,
+                             compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """The serving form of make_be_eval_step (JAX steps_be.py:81-113): imgs
+    (B, 3, S, S) -> {"edges", "masks"} thresholded at 0.5 and bit-packed
+    along W, (B, S, ceil(S / 8)) uint8 on the model's device (ops/bits.py).
+
+    Both manga pastes threshold the sigmoid maps at 0.5 at once
+    (eval/manga.py), so only the bits cross back to the host. The threshold
+    is `logits >= 0`, with no sigmoid: sigmoid(x) >= 0.5 exactly when x >=
+    0. Eval mode, no gradients, the model's mode restored after;
+    compute_dtype bfloat16 runs the forward under bf16 autocast, which moves
+    only logits near 0 across the threshold."""
+
+    @torch.no_grad()
+    def eval_step(imgs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            with autocast(imgs.device, compute_dtype):
+                preds = model(imgs)
+            return {k: pack_mask_bits(preds[k][:, 0] >= 0) for k in ("edges", "masks")}
         finally:
             model.train(was_training)
 
