@@ -15,7 +15,10 @@ Phases, in order; each raises on failure and nothing is caught:
               the gradients of `SpatialAttention` (the kernel's forward, the
               recompute backward) against autograd through the plain
               version; at the training batch of 8, the forward and the
-              gradients against the plain version, then their times.
+              gradients against the plain version, then their times. And at
+              RefineNet's shape (BC: B 8 and 32, N 258, Dk 32, Dv 256) both
+              layouts and both dtypes against the plain version, the
+              gradients, and at B = 32 the kernel, plain and library times.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -90,8 +93,35 @@ Phases, in order; each raises on failure and nothing is caught:
               backbone, on the card and on the CPU (TF32 off): in f32 the
               seven losses and both nets' buffers, in f64 the losses, both
               nets' gradients and every buffer.
+15. bc-infer -- BC (contour extraction and refinement) inference through the
+              port's test_bc CLI at 256 px, batch 8, full width (ResNet50-FPN,
+              RefineNet's six attention blocks, fc0 66048 -> 8256), seeded
+              random weights with random FrozenBatchNorm constants and
+              nonzero gammas: --debug (one synthetic batch) and --path over a
+              synthetic BCDataset tree, each writing its grids; then a
+              warm-up and three timed batches (host clock around the copy,
+              the forward with its mid-forward mask copy, the host trace and
+              the refine stage, and the synchronize; the trace apart), the
+              peak device memory, the forward's FLOPs and bound (bc_flops),
+              and a profile. Every forward launches the kernel 6 times.
+16. bc-train -- BC training through the port's train_bc CLI at 256 px, batch
+              32, full width, synthetic data: f32 for an epoch of 3
+              iterations, a resume of it for a second, bf16 compute with bf16
+              refine layers for an epoch of 2, then test_bc on the resumed
+              run dir (each run dir deleted once checked; the checkpoints'
+              size and write time printed). Then the step's FLOPs and bound,
+              a warm-up and three timed steps in each dtype with the trace
+              apart, the peak device memory, and a profile of a step in
+              each. Every iteration launches the kernel 6 times.
+17. bc parity -- one BC step at 128 px, batch 2, the full-width backbone, 32
+              points, injected contours, on the card and on the CPU (TF32
+              off): in f32 the three losses and every buffer, in f64 (the
+              plain attention on both: the kernel takes no f64) the losses,
+              every gradient and every buffer; then with contours traced, the
+              binary masks agree except within 1e-6 of the threshold and every
+              sample with equal masks traces the same points.
 The attention kernel is on no path of phases 7-14: its launch count must
-not move there.
+not move there. Phases 15-16 are driven with the count set to 0 before them.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -201,6 +231,23 @@ BE_GAN_ITERATIONS = {"bfloat16": 3, "float32": 2}
 BE_GAN_PARITY = dict(img=128, batch=2)
 BE_GAN_ZERO_GRADS = {"grad g backbone.fpn.layer_blocks.0.bias":
                      "grad g backbone.fpn.layer_blocks.0.weight"}
+# BC at the JAX CLIs' defaults (train_bc.py:35-45, test_bc.py:28-30): 256 px,
+# up to 256 contour points, test_bc batch 8, train_bc batch 32; ResNet50
+# (3, 4, 6, 3) x 64 with FPN 256 and RefineNet's fc0 66048 -> 8256. The CLI
+# runs an epoch of BC_ITERATIONS[dtype] iterations; BC_TIMED steps are timed
+# after a warm-up
+BC_IMG, BC_POINTS, BC_INFER_BATCH, BC_TRAIN_BATCH = 256, 256, 8, 32
+BC_ITERATIONS = {"float32": 3, "bfloat16": 2}
+BC_TIMED = 3
+BC_PER_FORWARD = 6  # attention launches: RefineNet's six blocks
+# (B, N, Dk, Dv) of RefineNet's attention: 258 feature positions, 256 points
+# as channels, q/k reduced 8x; at test_bc's and train_bc's batch
+BC_SHAPES = [(BC_INFER_BATCH, 258, 32, 256), (BC_TRAIN_BATCH, 258, 32, 256)]
+# phase 17 on the CPU as well: 128 px, batch 2, the full-width backbone, 32
+# points; BE_PARITY_TOL's bounds; traced masks may differ only where the
+# CPU's probability is within BC_PROB_MARGIN of the 0.5 threshold
+BC_PARITY = dict(img=128, batch=2, points=32)
+BC_PROB_MARGIN = 1e-6
 
 
 def gpu_line() -> str:
@@ -402,6 +449,34 @@ def _grad_check(shape, layout, q_scale, seed) -> None:
                              f"version at {shape} layout {layout}")
 
 
+def phase_kernels_bc(gpu: str) -> dict:
+    """Phase 2 at RefineNet's shape: the kernel against the plain version at
+    BC_SHAPES in both layouts and both dtypes, the Function's gradients in
+    both layouts, and at B = 32 (train_bc's batch) the times of the kernel,
+    the plain version and the library call, channel-major as the model
+    passes them. Returns the kernel line's BC keys."""
+    err = None
+    for i, shape in enumerate(BC_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("n", "c"):
+                e = _check_case(shape, dtype, layout, 1.0, seed=300 + i)
+                if shape == BC_SHAPES[-1] and dtype == torch.float32 and layout == "c":
+                    err = e
+        for layout in ("c", "n"):
+            _grad_check(shape, layout, 1.0, seed=310 + i)
+    shape = BC_SHAPES[-1]
+    ms, plain_ms, library_ms = _forward_times(shape, "c")
+    bound_ms, bound_by, flops = _forward_bound(shape)
+    print(f"[kernels] BC shape B,N,Dk,Dv={shape} f32, channel-major, on {gpu}: kernel_ms {ms:.4f} "
+          f"(with the copies of k and v that N = 258 needs), plain_ms {plain_ms:.4f}, "
+          f"library_ms {library_ms:.4f}, bound_ms {bound_ms:.5f} ({bound_by}: {TF32_PASSES} x "
+          f"{flops / 1e9:.3f} GFLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), "
+          f"{bound_ms / ms:.1%} of its bound")
+    return {"bc_shape": list(shape), "bc_max_abs_err": err, "bc_ms": ms, "bc_plain_ms": plain_ms,
+            "bc_bound_ms": bound_ms, "bc_bound_by": bound_by, "bc_library_ms": library_ms,
+            "bc_launches": None}
+
+
 def phase_kernel_backward(gpu: str) -> None:
     """Phase 2's autograd half: the Function's gradients at the BP shape and
     the ragged shapes in both layouts; then, at the shape the training path
@@ -441,20 +516,24 @@ def phase_kernel_backward(gpu: str) -> None:
           f"{PER_ITERATION * bwd_ms:.2f} ms backward")
 
 
-def random_model(seed: int = 0, image_size: int = IMG, emit_channels=None):
-    """A seeded random ComposeNet (the full emit-channel pyramid unless
-    emit_channels is given) with every attention gamma drawn from
-    +-[0.2, 0.6] (it starts at 0, which would hide the attention output)."""
-    from vaeplay_torch.models.bp import ComposeNet
-
-    model = ComposeNet(image_size=image_size, emit_channels=emit_channels,
-                       generator=torch.Generator().manual_seed(seed))
-    g = torch.Generator().manual_seed(seed + 1)
+def _draw_gammas(model, g: torch.Generator) -> None:
+    """Every attention gamma from +-[0.2, 0.6] (they start at 0, which would
+    hide the attention output)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith(".gamma"):
                 sign = 1.0 if torch.rand(1, generator=g).item() < 0.5 else -1.0
                 p.copy_(sign * (0.2 + 0.4 * torch.rand(1, generator=g)))
+
+
+def random_model(seed: int = 0, image_size: int = IMG, emit_channels=None):
+    """A seeded random ComposeNet (the full emit-channel pyramid unless
+    emit_channels is given) with every attention gamma drawn (_draw_gammas)."""
+    from vaeplay_torch.models.bp import ComposeNet
+
+    model = ComposeNet(image_size=image_size, emit_channels=emit_channels,
+                       generator=torch.Generator().manual_seed(seed))
+    _draw_gammas(model, torch.Generator().manual_seed(seed + 1))
     return model
 
 
@@ -504,7 +583,7 @@ def _group(kernel: str, ops, transposed: bool = False) -> str:
     if "flash_attention" in kernel:
         return "attention kernel (forward)"
     if "Memcpy" in kernel:
-        return "host-to-device copy"
+        return "device-to-host copy" if "DtoH" in kernel else "host-to-device copy"
     if optimizer:  # Optimizer.step#Adam.step -> Adam
         return f"{optimizer.split('#')[-1].split('.')[0]} (step and zero_grad)"
     if node.startswith("SpatialAttentionBackward"):
@@ -528,6 +607,8 @@ def _group(kernel: str, ops, transposed: bool = False) -> str:
         return "convolution forward (cuDNN)"
     if "gemm" in kernel:
         return "GEMMs (linear layers, 1x1 convolutions)" + (", backward" if node else "")
+    if node.startswith("GridSampler") or any(o.startswith("aten::grid_sampler") for o in ops):
+        return "bicubic point sampling" + (", backward" if node else "")
     if "copy" in kernel:
         return "tensor copies (.contiguous, layout)"
     return "elementwise and other" + (", backward" if node else "")
@@ -987,17 +1068,12 @@ def phase_vae_parity() -> None:
         raise AssertionError("the card's VAE-GAN step disagrees with the CPU's")
 
 
-def random_be_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64, family: str = "be"):
-    """A seeded BE ComposeNet (the BE_GAN generator for family "be_gan") with
-    every FrozenBatchNorm2d's four buffers drawn (they start at identity,
+def _draw_frozen_bn(model, g: torch.Generator) -> None:
+    """Every FrozenBatchNorm2d's four buffers drawn (they start at identity,
     which would leave the backbone's norms untested): weight in [0.3, 0.8],
     bias and running_mean in +-0.1, running_var in [0.5, 1.5]."""
-    from vaeplay_torch.models import be, be_gan
     from vaeplay_torch.models.backbone import FrozenBatchNorm2d
 
-    net = {"be": be, "be_gan": be_gan}[family].ComposeNet
-    model = net(layers, width, generator=torch.Generator().manual_seed(seed))
-    g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, FrozenBatchNorm2d):
@@ -1006,6 +1082,16 @@ def random_be_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64, family:
                                        ("running_var", (0.5, 1.5))):
                     t = getattr(m, name)
                     t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+
+
+def random_be_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64, family: str = "be"):
+    """A seeded BE ComposeNet (the BE_GAN generator for family "be_gan") with
+    every FrozenBatchNorm2d's buffers drawn (_draw_frozen_bn)."""
+    from vaeplay_torch.models import be, be_gan
+
+    net = {"be": be, "be_gan": be_gan}[family].ComposeNet
+    model = net(layers, width, generator=torch.Generator().manual_seed(seed))
+    _draw_frozen_bn(model, torch.Generator().manual_seed(seed + 1))
     return model
 
 
@@ -1684,6 +1770,453 @@ def phase_be_gan_parity() -> None:
             raise AssertionError(f"the card's {label} BE_GAN step disagrees with the CPU's")
 
 
+def random_bc_model(seed: int = 0, layers=(3, 4, 6, 3), width: int = 64, points: int = BC_POINTS):
+    """A seeded BC ComposeNet with every FrozenBatchNorm2d's buffers and every
+    attention gamma drawn (_draw_frozen_bn, _draw_gammas)."""
+    from vaeplay_torch.models.bc import ComposeNet
+
+    model = ComposeNet(points, backbone_layers=layers, backbone_width=width,
+                       generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    _draw_frozen_bn(model, g)
+    _draw_gammas(model, g)
+    return model
+
+
+def bc_flops(img: int, points: int = BC_POINTS) -> dict:
+    """Multiply-adds x 2 of one image through BC's training forward and its
+    backward, by part (body, fpn, heads, refine convs, attention, fc), from
+    the layer shapes: every Conv2d and Linear, counted by hooks on the meta
+    device (the stem and layer1 frozen), RefineNet's q, k, v convolutions
+    and linear layers called on meta inputs of their shapes, and the
+    attention's two products counted from (N, Dk, Dv); its backward is the
+    recompute VJP's five. A convolution's or linear layer's backward costs
+    its forward once for the weight gradient, if the weight trains, and once
+    for the input gradient, if its input needs one."""
+    from vaeplay_torch.models.bc import FEAT_SIZE, ComposeNet
+    from vaeplay_torch.train.state import freeze_backbone_stem
+
+    with torch.device("meta"):
+        model = ComposeNet(points).train()
+    freeze_backbone_stem(model)
+    out = {"forward": {}, "backward": {}}
+
+    def add(part, fwd, bwd):
+        out["forward"][part] = out["forward"].get(part, 0) + fwd
+        out["backward"][part] = out["backward"].get(part, 0) + bwd
+
+    def count(part):
+        def hook(m, inputs, y):
+            x = inputs[0]
+            if isinstance(m, torch.nn.Linear):
+                f = 2 * y.numel() // y.shape[0] * m.in_features
+            else:
+                f = 2 * y.numel() // y.shape[0] * (m.in_channels // m.groups) * math.prod(
+                    m.kernel_size)
+            add(part, f, f * (int(m.weight.requires_grad) + int(x.requires_grad)))
+        return hook
+
+    for name, m in model.named_modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            part = ("body" if ".body." in name else "fpn" if ".fpn." in name
+                    else "refine convs" if "deform_blocks" in name
+                    else "fc" if "fc_blocks" in name else "heads")
+            m.register_forward_hook(count(part))
+    model.edge_net(model.mask_net(model.feature_net(torch.zeros(2, 3, img, img, device="meta"))))
+    y = torch.zeros(2, points, FEAT_SIZE, 1, device="meta", requires_grad=True)
+    for block in model.refine_net.deform_blocks:
+        block.q(y), block.k(y), block.v(y)
+    n, dk, dv = FEAT_SIZE, points // 8, points
+    add("attention", len(model.refine_net.deform_blocks) * 2 * n * n * (dk + dv),
+        len(model.refine_net.deform_blocks) * 2 * n * n * (3 * dk + 2 * dv))
+    model.refine_net.fc_blocks(torch.zeros(2, points * FEAT_SIZE, device="meta",
+                                           requires_grad=True))
+    return out
+
+
+def _check_bc_preds(preds, batch: int, img: int, points: int) -> None:
+    shapes = {"edges": (batch, 1, img, img), "masks": (batch, 1, img, img),
+              "contours": (batch, points, 2), "contour_counts": (batch,),
+              "contour_regressions": (batch, points, 2)}
+    for name, shape in shapes.items():
+        t = preds[name]
+        if tuple(t.shape) != shape or (t.is_floating_point() and not bool(torch.isfinite(t).all())):
+            raise AssertionError(f"{name}: shape {tuple(t.shape)} (want {shape}) or not finite")
+    counts, pts = preds["contour_counts"], preds["contours"]
+    if not (bool((counts >= 0).all()) and bool((counts <= points).all())
+            and float(pts.min()) >= 0 and float(pts.max()) <= img + 1):
+        raise AssertionError(f"traced contours out of range: counts {counts.tolist()}")
+
+
+def write_bc_tree(root: str, n: int, img: int) -> str:
+    """A BCDataset tree under root: class dir "1" with n samples, each an
+    image, its `_edge` input (a synthetic bubble, render_bubble_batch), and
+    its `_mask` and `_mask_edge` files (red on white, the reference's layer
+    encoding)."""
+    import numpy as np
+    from PIL import Image
+
+    from vaeplay_torch.data.be_data import render_bubble_batch, sample_bubble_params
+
+    folder = os.path.join(root, "1")
+    os.makedirs(folder)
+    imgs, bimgs, eimgs = render_bubble_batch(
+        img, torch.from_numpy(sample_bubble_params(img, n, seed=9)[0]))
+    for i in range(n):
+        rgb = (imgs[i].permute(1, 2, 0).numpy() * 255).astype(np.uint8)
+        for suffix in ("", "_edge"):
+            Image.fromarray(rgb).save(os.path.join(folder, f"s{i}{suffix}.png"))
+        for suffix, m in (("_mask", bimgs[i, 0]), ("_mask_edge", eimgs[i, 0])):
+            layer = np.full((img, img, 3), 255, np.uint8)
+            layer[m.numpy() > 0] = (255, 0, 0)
+            Image.fromarray(layer).save(os.path.join(folder, f"s{i}{suffix}.png"))
+    return root
+
+
+def _bc_trace_ms(run, *args):
+    """run(*args) with the host clock around it and a synchronize after;
+    returns (its result, total ms, the packed copy's wait ms, the trace ms)."""
+    from vaeplay_torch.models.bc import trace_contours
+
+    torch.cuda.synchronize()
+    c0, t0 = trace_contours.copy_seconds, trace_contours.trace_seconds
+    t = time.perf_counter()
+    out = run(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return (out, ms, (trace_contours.copy_seconds - c0) * 1e3,
+            (trace_contours.trace_seconds - t0) * 1e3)
+
+
+def phase_bc_infer(tmp: str, gpu: str) -> None:
+    """BC inference through the test_bc CLI on cuda:0 at 256 px, batch 8, full
+    width: --debug with seeded random weights (nonzero gammas), then --path
+    over a synthetic BCDataset tree; then timed batches with the trace apart,
+    the peak memory, the forward's FLOPs and bound, and a profile. Every
+    forward launches the attention kernel BC_PER_FORWARD times."""
+    from vaeplay_torch.cli import test_bc
+    from vaeplay_torch.data.bc_data import SyntheticBCDataset
+    from vaeplay_torch.ops import attention
+
+    dev = torch.device("cuda", 0)
+    weights = os.path.join(tmp, "bc_random.pt")
+    t0 = time.perf_counter()
+    torch.save(random_bc_model(0, points=BC_POINTS).state_dict(), weights)
+    print(f"[bc-infer] random weights {os.path.getsize(weights) / 2**30:.2f} GiB made and saved "
+          f"in {time.perf_counter() - t0:.1f} s")
+    data = write_bc_tree(os.path.join(tmp, "bc_data"), BC_INFER_BATCH + 2, BC_IMG)
+    for label, extra, grids in (("--debug", ["--debug"], ["contours.png"]),
+                                ("--path", ["--path", data], ["contours_0.png", "contours_1.png"])):
+        before = attention.flash_attention.launches
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, f"bc_test{len(grids)}")
+        written = test_bc.main(["--model_path", weights, "--gpu", "0", "--img_size", str(BC_IMG),
+                                "--max_points", str(BC_POINTS), "--batchsize",
+                                str(BC_INFER_BATCH), "--res_output", out, *extra])
+        launches = attention.flash_attention.launches - before
+        print(f"[bc-infer] CLI run {label} (load, {len(grids)} batch(es) of up to "
+              f"{BC_INFER_BATCH} at {BC_IMG} px, grids) {time.perf_counter() - t0:.2f} s, "
+              f"{launches} kernel launches; wrote {written}")
+        if ([os.path.basename(p) for p in written] != grids
+                or not all(os.path.getsize(p) > 0 for p in written)
+                or launches != BC_PER_FORWARD * len(grids)):
+            raise AssertionError(f"test_bc {label} wrote {written} with {launches} launches")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = test_bc.load_model(weights, BC_POINTS, dev)
+    ds = SyntheticBCDataset(img_size=BC_IMG, max_points=BC_POINTS, data_size=4 * BC_INFER_BATCH,
+                            seed=5)
+    batches = [b["imgs"] for b in ds.epoch_batches(BC_INFER_BATCH)]
+    times, traces = [], []
+    for i, imgs in enumerate(batches):
+        before = attention.flash_attention.launches
+        preds, ms, copy_ms, trace_ms = _bc_trace_ms(test_bc.predict, model, imgs, dev)
+        _check_bc_preds(preds, BC_INFER_BATCH, BC_IMG, BC_POINTS)
+        if attention.flash_attention.launches - before != BC_PER_FORWARD:
+            raise AssertionError(f"a BC forward did not launch the kernel {BC_PER_FORWARD} times")
+        if i:
+            times.append(ms)
+            traces.append(trace_ms)
+        print(f"[bc-infer] batch {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms (PyTorch "
+              f"defaults: TF32 convolutions; batch {BC_INFER_BATCH}, {BC_IMG} px, host clock incl. "
+              f"host-to-device copy), of which the packed mask's copy back {copy_ms:.2f} ms "
+              f"(waits for the mask stage) and the host trace {trace_ms:.2f} ms "
+              f"({trace_ms / ms:.1%}); counts {preds['contour_counts'].tolist()} on {gpu}")
+    print(f"[bc-infer] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights and activations)")
+    flops = bc_flops(BC_IMG, BC_POINTS)
+    fwd = sum(flops["forward"].values()) * BC_INFER_BATCH
+    median, trace = sorted(times)[len(times) // 2], sorted(traces)[len(traces) // 2]
+    print(f"[bc-infer] forward GFLOP per image: " + ", ".join(
+        f"{k} {v / 1e9:.3f}" for k, v in flops["forward"].items())
+        + f"; a batch {fwd / 1e12:.3f} TFLOP, bound {fwd / PEAK_TF32_FLOPS * 1e3:.3f} ms at "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32; median batch {median:.2f} ms, "
+        f"{BC_INFER_BATCH / median * 1e3:.1f} images/s, host trace {trace:.2f} ms "
+        f"({trace / BC_INFER_BATCH:.3f} ms a mask, {trace / median:.1%} of the batch), "
+        f"{fwd / PEAK_TF32_FLOPS * 1e3 / median:.1%} of the bound on {gpu}")
+    _profile(lambda: test_bc.predict(model, batches[1], dev), "bc-infer")
+
+
+def _check_bc_run(run: str, epoch: int, dtype: str) -> None:
+    """A train_bc run dir of one epoch: its checkpoint and one log line of
+    finite losses."""
+    from vaeplay_torch.train.steps_bc import METRIC_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in METRIC_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[bc-train] {dtype} epoch {epoch}: " + " ".join(f"{k}={r[k]:.4f}" for k in METRIC_KEYS)
+          + f" ({r['images_per_sec']:.1f} img/s over the epoch, host trace "
+          f"{r['trace_ms_per_iteration']:.2f} ms an iteration, CLI's host clock); checkpoint "
+          f"{os.path.getsize(os.path.join(run, f'{epoch}.ckpt')) / 2**30:.2f} GiB")
+
+
+def _bc_cli(tmp: str, name: str, dtype: str, *extra) -> str:
+    from vaeplay_torch.cli import train_bc
+    from vaeplay_torch.ops import attention
+
+    n = BC_ITERATIONS[dtype]
+    before = attention.flash_attention.launches
+    t0 = time.perf_counter()
+    run = train_bc.main(["--gpu", "0", "--img_size", str(BC_IMG), "--max_points", str(BC_POINTS),
+                         "--batchsize",
+                         str(BC_TRAIN_BATCH), "--iterations", str(n), "--viz_freq", str(n),
+                         "--dtype", dtype, "--refine_dtype", dtype,
+                         "--res_output", os.path.join(tmp, "bc_results"),
+                         "--model_output", os.path.join(tmp, name), *extra])
+    launches = attention.flash_attention.launches - before
+    print(f"[bc-train] CLI run {dtype} {' '.join(extra)} (init, {n} iterations, checkpoint) "
+          f"{time.perf_counter() - t0:.2f} s, {launches} kernel launches: {run}")
+    if launches != BC_PER_FORWARD * n:
+        raise AssertionError(f"train_bc launched the kernel {launches} times in {n} iterations")
+    return run
+
+
+def _bc_timed(dtype: str, gpu: str) -> tuple:
+    """A warm-up and BC_TIMED steps of make_bc_train_step, the contours
+    traced inside each forward, --dtype and --refine_dtype `dtype`, each
+    from the host batch to synchronize (copy, forward with the mid-forward
+    trace, backward, Adam), and the peak device memory. Returns (state,
+    step, a further batch on the card) for a profile, and the median step
+    and trace ms."""
+    from vaeplay_torch.cli.train_bc import build_state, device_batch
+    from vaeplay_torch.data.bc_data import SyntheticBCDataset
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.steps_bc import make_bc_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = build_state(1e-4, 0, BC_POINTS, resolve_dtype(dtype), 1, dev)
+    state.model.train()
+    step = make_bc_train_step(state.model, resolve_dtype(dtype))
+    ds = SyntheticBCDataset(img_size=BC_IMG, max_points=BC_POINTS,
+                            data_size=(BC_TIMED + 2) * BC_TRAIN_BATCH)
+    host = list(ds.epoch_batches(BC_TRAIN_BATCH))
+    times, traces = [], []
+    for i, b in enumerate(host[:BC_TIMED + 1]):
+        before = attention.flash_attention.launches
+        (state, metrics), ms, copy_ms, trace_ms = _bc_trace_ms(
+            lambda: step(state, *device_batch(b, dev)))
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite losses: {metrics}")
+        if attention.flash_attention.launches - before != BC_PER_FORWARD:
+            raise AssertionError(f"a BC step did not launch the kernel {BC_PER_FORWARD} times")
+        if i:
+            times.append(ms)
+            traces.append(trace_ms)
+        print(f"[bc-train] {dtype} step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
+              f"{BC_TRAIN_BATCH / ms * 1e3:.1f} images/s (PyTorch defaults; batch "
+              f"{BC_TRAIN_BATCH}, {BC_IMG} px, host clock incl. the batch's copy), of which the "
+              f"packed mask's copy back {copy_ms:.2f} ms and the host trace {trace_ms:.2f} ms "
+              f"({trace_ms / ms:.1%}) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[bc-train] {dtype} peak device memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights, gradients, Adam moments, activations)")
+    return ((state, step, device_batch(host[-1], dev)),
+            sorted(times)[len(times) // 2], sorted(traces)[len(traces) // 2])
+
+
+def phase_bc_train(tmp: str, gpu: str) -> dict:
+    """BC through the train_bc CLI at 256 px, batch 32, full width: f32 for
+    one epoch, a resume for a second, bf16 compute with bf16 refine layers
+    for one epoch, test_bc on the resumed run dir (each run dir deleted once
+    checked); then the step's FLOPs and bound, timed steps and a profile in
+    each dtype. Returns the median step ms by dtype."""
+    from vaeplay_torch.cli import test_bc
+    from vaeplay_torch.ops import attention
+
+    run = _bc_cli(tmp, "bc_a", "float32", "--epoch", "1")
+    _check_bc_run(run, 0, "float32")
+    resumed = _bc_cli(tmp, "bc_b", "float32", "--epoch", "2", "--resume", run)
+    _check_bc_run(resumed, 1, "float32")
+    shutil.rmtree(os.path.join(tmp, "bc_a"))
+    _check_bc_run(_bc_cli(tmp, "bc_c", "bfloat16", "--epoch", "1"), 0, "bfloat16")
+    shutil.rmtree(os.path.join(tmp, "bc_c"))
+    before = attention.flash_attention.launches
+    written = test_bc.main(["--model_path", resumed, "--gpu", "0", "--img_size", str(BC_IMG),
+                            "--max_points", str(BC_POINTS), "--batchsize", str(BC_INFER_BATCH),
+                            "--res_output", os.path.join(tmp, "bc_trained")])
+    if (len(written) != 1 or not os.path.getsize(written[0])
+            or attention.flash_attention.launches - before != BC_PER_FORWARD):
+        raise AssertionError(f"test_bc on the trained run dir wrote {written}")
+    print(f"[bc-train] test_bc --model_path <run dir> wrote {written}")
+    shutil.rmtree(os.path.join(tmp, "bc_b"))
+
+    from vaeplay_torch.models.bc import ComposeNet
+    from vaeplay_torch.train.state import is_frozen_backbone_param
+
+    with torch.device("meta"):
+        model = ComposeNet(BC_POINTS)
+        n_params = sum(p.numel() for p in model.parameters())
+        n_frozen = sum(p.numel() for n, p in model.named_parameters()
+                       if is_frozen_backbone_param(n))
+        n_fc0 = model.refine_net.fc_blocks[0].weight.numel()
+    flops = bc_flops(BC_IMG, BC_POINTS)
+    fwd, bwd = sum(flops["forward"].values()), sum(flops["backward"].values())
+    step_flops = (fwd + bwd) * BC_TRAIN_BATCH
+    print(f"[bc-train] {n_params / 1e6:.2f} M parameters ({n_fc0 / 1e6:.2f} M in fc0's weight, "
+          f"{n_frozen / 1e6:.2f} M frozen); GFLOP per image from the layer shapes, forward: "
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in flops["forward"].items())
+          + f" (total {fwd / 1e9:.2f}); backward: " + ", ".join(
+              f"{k} {v / 1e9:.3f}" for k, v in flops["backward"].items())
+          + f" (total {bwd / 1e9:.2f}); step ({BC_TRAIN_BATCH} images) "
+          f"{step_flops / 1e12:.3f} TFLOP, bound {step_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, {step_flops / PEAK_TF32_FLOPS * 1e3:.2f} ms "
+          f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (dense tensor-core rates, 700 W)")
+    medians = {}
+    for dtype, peak, rate in (("float32", PEAK_TF32_FLOPS, "TF32"),
+                              ("bfloat16", PEAK_BF16_FLOPS, "bf16")):
+        profiled = None  # the previous state is freed before this peak is taken
+        profiled, ms, trace = _bc_timed(dtype, gpu)
+        medians[dtype] = ms
+        print(f"[bc-train] {dtype} median step {ms:.2f} ms, {BC_TRAIN_BATCH / ms * 1e3:.1f} "
+              f"images/s, {step_flops / ms / 1e9:.1f} TFLOP/s, {step_flops / peak * 1e3 / ms:.1%} "
+              f"of the {rate} bound; host trace {trace:.2f} ms ({trace / BC_TRAIN_BATCH:.3f} ms a "
+              f"mask, {trace / ms:.1%} of the step) on {gpu}")
+        state, step, batch = profiled
+        _profile(lambda: step(state, *batch), f"bc-train {dtype}", runs=1)
+        del state, step, batch
+    del profiled
+    torch.cuda.empty_cache()
+    return medians
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """SelfAttentionBlock on the plain version (autograd through
+    reference_attention) on every device inside the block: for the f64
+    card-vs-CPU check, since the kernel takes f32 and bf16 only."""
+    from vaeplay_torch.core import layers
+    from vaeplay_torch.ops import attention
+
+    saved = layers.spatial_self_attention
+    layers.spatial_self_attention = attention.reference_attention
+    try:
+        yield
+    finally:
+        layers.spatial_self_attention = saved
+
+
+def phase_bc_parity() -> None:
+    """One BC training step on the card and on the CPU from the same seeded
+    weights (the full-width backbone, random FrozenBatchNorm constants,
+    nonzero gammas), noise images, bubble masks, their traced targets and
+    injected contours, TF32 off. f32 (the kernel on the card): the three
+    losses and every buffer. f64 (the plain attention on both, the kernel
+    taking no f64): the losses, every gradient and every buffer. Then, with
+    contours=None in eval mode, the two binary masks agree except where the
+    CPU's probability is within BC_PROB_MARGIN of 0.5, and every sample
+    whose masks agree traces the same points and count on both."""
+    import numpy as np
+
+    from vaeplay_torch.data.bc_data import contour_targets_from_mask
+    from vaeplay_torch.data.be_data import render_bubble_batch, sample_bubble_params
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.state import frozen_backbone_adam
+    from vaeplay_torch.train.steps_bc import METRIC_KEYS, make_bc_train_step
+
+    cfg = BC_PARITY
+    b, img, points = cfg["batch"], cfg["img"], cfg["points"]
+    base = random_bc_model(7, points=points)
+    rng = np.random.default_rng(3)
+    imgs = torch.from_numpy(rng.uniform(size=(b, 3, img, img)))
+    table = torch.from_numpy(sample_bubble_params(img, b, seed=4)[0])
+    bimgs, eimgs = render_bubble_batch(img, table)[1:]
+    targets = [contour_targets_from_mask(m[0].numpy(), 1, points) for m in bimgs]
+    tgt_pts, ns, key_pts, ks = (np.stack(t) for t in zip(*targets))
+    tgt_mask = (np.arange(points)[None] < ns[:, None]).astype(np.float32)
+    key_mask = (np.arange(key_pts.shape[1])[None] < ks[:, None]).astype(np.float32)
+    pts = rng.integers(0, img // 4 + 8, size=(b, points, 2)).astype(np.float32)
+    counts = torch.tensor([points, points - 7], dtype=torch.int32)
+    for dtype in (torch.float32, torch.float64):
+        results = []
+        for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+            model = copy.deepcopy(base).to(dev, dtype).train()
+            state = frozen_backbone_adam(model, 1e-4)
+            to = lambda a: torch.as_tensor(a).to(dev, dtype)
+            batch = [to(imgs), to(bimgs), to(eimgs), to(tgt_pts), to(tgt_mask), to(key_pts),
+                     to(key_mask)]
+            before = attention.flash_attention.launches
+            with plain_attention() if dtype == torch.float64 else contextlib.nullcontext():
+                _, m = make_bc_train_step(model)(state, *batch,
+                                                 contours=(to(pts), counts.to(dev)))
+            launched = attention.flash_attention.launches - before
+            want = BC_PER_FORWARD if dev.type == "cuda" and dtype == torch.float32 else 0
+            if launched != want:
+                raise AssertionError(f"the {dtype} step on {dev} launched the kernel {launched} "
+                                     f"times, not {want}")
+            got = {f"buffer {k}": t.cpu() for k, t in model.named_buffers()
+                   if t.is_floating_point()}
+            if dtype == torch.float64:
+                got.update({f"grad {k}": p.grad.cpu() for k, p in model.named_parameters()
+                            if p.grad is not None})
+            results.append((got, {k: v.cpu() for k, v in m.items()}))
+        (ref_t, ref_m), (got_t, got_m) = results
+        if sorted(ref_t) != sorted(got_t):
+            raise AssertionError("the card and the CPU computed gradients of different tensors")
+        tol = BE_PARITY_TOL[dtype]
+        worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in METRIC_KEYS)
+        worst, name = max((_worst(got_t[k], ref_t[k], tol), k) for k in ref_t)
+        n_grads = sum(k.startswith("grad") for k in ref_t)
+        label = str(dtype)[6:]
+        print(f"[bc parity] {label} losses card vs CPU: " + " ".join(
+            f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in METRIC_KEYS))
+        print(f"[bc parity] {label}: worst loss at {worst_loss:.2e} of its bound ({loss}), worst "
+              f"gradient or buffer at {worst:.2e} ({name}); bound atol {tol[0]:g} x max |ref| + "
+              f"rtol {tol[1]:g} x |ref|; {n_grads} gradients, {len(ref_t) - n_grads} buffers")
+        if worst_loss > 1 or worst > 1 or not all(
+                bool(torch.isfinite(t).all()) for t in list(got_t.values()) + list(got_m.values())):
+            raise AssertionError(f"the card's {label} BC step disagrees with the CPU's")
+
+    traced = []
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        model = copy.deepcopy(base).to(dev).eval()
+        with torch.no_grad():
+            x = imgs.to(dev, torch.float32)
+            probs = model.mask_probs(x)[:, 0].cpu()
+            preds = model(x)
+        traced.append((probs, preds["contours"].cpu(), preds["contour_counts"].cpu()))
+    (p_cpu, pts_cpu, n_cpu), (p_card, pts_card, n_card) = traced
+    differ = (p_cpu >= 0.5) != (p_card >= 0.5)
+    near = (p_cpu - 0.5).abs() < BC_PROB_MARGIN
+    agree = [i for i in range(b) if not bool(differ[i].any())]
+    print(f"[bc parity] traced contours: {int(differ.sum())} mask pixels differ, "
+          f"{int(near.sum())} within {BC_PROB_MARGIN:g} of 0.5; samples with equal masks "
+          f"{agree}, counts card {n_card.tolist()} CPU {n_cpu.tolist()}")
+    if bool((differ & ~near).any()) or not agree or not all(
+            torch.equal(pts_card[i], pts_cpu[i]) and int(n_card[i]) == int(n_cpu[i])
+            for i in agree):
+        raise AssertionError("the card's traced contours disagree with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -1717,6 +2250,7 @@ def main(argv) -> int:
     with strict_f32():
         kernel = phase_kernels(gpu)
         phase_kernel_backward(gpu)
+        kernel.update(phase_kernels_bc(gpu))
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
         random_weights(weights)
@@ -1732,6 +2266,11 @@ def main(argv) -> int:
         phase_be_gan_train(tmp, tree, gpu)
         if attention.flash_attention.launches != before:
             raise AssertionError("a BE or BE_GAN phase launched the attention kernel")
+        attention.flash_attention.launches = 0
+        phase_bc_infer(tmp, gpu)
+        phase_bc_train(tmp, gpu)
+        kernel["bc_launches"] = attention.flash_attention.launches
+        kernel["launches"] += kernel["bc_launches"]
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
@@ -1740,6 +2279,7 @@ def main(argv) -> int:
         phase_be_gan_parity()
         if attention.flash_attention.launches != before:
             raise AssertionError("a BE or BE_GAN parity step launched the attention kernel")
+        phase_bc_parity()
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

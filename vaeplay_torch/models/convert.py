@@ -1,8 +1,9 @@
 """JAX (flax) parameters -> the port's state_dict.
 
-The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN, BE and
-BE_GAN mappings (`bp_from_torch`, `vaegan_from_torch`, `be_from_torch`,
-`be_gan_from_torch`, `be_gan_disc_from_torch`, and for the backbone
+The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN, BE,
+BE_GAN and BC mappings (`bp_from_torch`, `vaegan_from_torch`,
+`be_from_torch`, `be_gan_from_torch`, `be_gan_disc_from_torch`,
+`bc_from_torch`, and for the backbone
 vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
 for trees given as nested mappings of numpy arrays (for example
 `jax.device_get(variables["params"])`). It imports neither JAX nor the JAX
@@ -270,4 +271,35 @@ def be_gan_disc_state_dict_from_jax(params: Mapping,
         _convblock(sd, f"{name}.pooler.0", p["pool_conv"])
     for i in range(3):
         _linear(sd, f"predictor.{i}.fc.0", params[f"pred{i}"]["fc"])
+    return sd
+
+
+def bc_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                           constants: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/bc.ComposeNet variables -> state_dict of the port's BC
+    ComposeNet; the inverse of torch_convert.bc_from_torch. MaskNet's p1/p2
+    (SmallChannelConv3x3S1) and EdgeNet's OneChannelConv3x3 hold canonical
+    (3, 3, C, F) kernels; RefineNet's fc kernels flatten (point, feature)
+    on both sides, so they only transpose. bf16 fc tensors (refine_fc_dtype)
+    come out as f32 holding the same values, which a bf16 model loads
+    exactly."""
+    sd = backbone_state_dict_from_jax(params["feature_net"]["feature"],
+                                      constants["feature_net"]["feature"], "feature_net.feature.")
+    mn, mn_s = params["mask_net"], batch_stats["mask_net"]
+    for name, key in (("c1a", "conv1.0"), ("c1b", "conv1.1"), ("c1c", "conv1.2"),
+                      ("c2a", "conv2.0"), ("c2b", "conv2.1")):
+        _bn_convblock(sd, f"mask_net.{key}", mn[name], mn_s[name])
+    for i in range(2):
+        _convblock(sd, f"mask_net.predictor.{i}", {"conv": mn[f"p{i + 1}"]})
+    en = params["edge_net"]
+    for i in range(3):
+        _convblock(sd, f"edge_net.conv1.{i}", {"conv": en[f"c{i}"]})
+    for i in range(2):
+        _convblock(sd, f"edge_net.predictor.{i}", {"conv": en[f"p{i}"]})
+    rn = params["refine_net"]
+    for i in range(6):
+        _attnblock(sd, f"refine_net.deform_blocks.{i}", rn[f"attn{i}"])
+    for i in range(2):
+        sd[f"refine_net.fc_blocks.{i}.weight"] = _t(_lin(rn[f"fc{i}"]["kernel"]))
+        sd[f"refine_net.fc_blocks.{i}.bias"] = _t(rn[f"fc{i}"]["bias"])
     return sd

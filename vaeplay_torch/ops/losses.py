@@ -3,7 +3,8 @@ circle VAE-GAN and BE train on: the ellipse parameter L1 and the per-point
 emit-line loss (reference tools/ops.py), the VAE-GAN's loss pieces
 (reference models/networks.py:264-281), BE's mask/edge head loss
 (train_BE.py:58-60), BE_GAN's Laplacian edge loss (tools/ops.py:187-214),
-and the helpers they use. Functions
+BC's chamfer point-regression loss (tools/ops.py:21-66), and the helpers
+they use. Functions
 on tensors of any device; fixed-shape, mask-weighted means as in the JAX
 package.
 """
@@ -78,6 +79,52 @@ def edge_loss(maps: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     (reference tools/ops.py:187-214). The BE_GAN step passes sigmoid maps
     (train_BE_GAN.py, JAX steps_be_gan.py:124-125)."""
     return dice_loss(laplacian_edges(maps), laplacian_edges(targets))
+
+
+def _per_sample_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-sample masked mean of x (B, ...) -> (B,); mask broadcasts to x,
+    and an empty mask gives 0."""
+    mask = mask.to(x.dtype).expand(x.shape)
+    b = x.shape[0]
+    return (x * mask).reshape(b, -1).sum(dim=1) / mask.reshape(b, -1).sum(dim=1).clamp(min=1.0)
+
+
+def chamfer_pt_regression_loss(
+    pred_pts: torch.Tensor,      # (B, N, 2) predicted (traced) contour points
+    pred_mask: torch.Tensor,     # (B, N) validity
+    pred_regress: torch.Tensor,  # (B, N, 2) predicted per-point regressions
+    target_pts: torch.Tensor,    # (B, M, 2) target contour points
+    target_mask: torch.Tensor,   # (B, M) validity
+    key_pts: torch.Tensor,       # (B, K, 2) RDP key points
+    key_mask: torch.Tensor,      # (B, K) validity
+) -> torch.Tensor:
+    """BC's compute_pt_regression_loss (reference tools/ops.py:21-66), masked
+    and batched as the JAX package has it (losses.py:158-216). Per sample, a
+    bidirectional nearest match between the predicted and the target points
+    (the first index on a tie); the regressions are held by MSE to the
+    offsets to the matched points, each direction a per-sample mean:
+    p2t 1.0 and t2p 0.1 against the full contour, t2p 2.0 against the key
+    points. A sample with no predicted point contributes exactly 0, and the
+    result is the mean over the batch."""
+
+    def one_direction(tgt, tmask):
+        dif = tgt[:, None, :, :] - pred_pts[:, :, None, :]           # (B, N, M, 2)
+        dist = torch.linalg.vector_norm(dif.detach(), dim=-1)        # (B, N, M)
+        big = torch.full((), 1e30, dtype=dist.dtype, device=dist.device)
+        p2t_idx = torch.where(tmask[:, None, :] > 0, dist, big).argmin(dim=2)     # (B, N)
+        t2p_idx = torch.where(pred_mask[:, :, None] > 0, dist, big).argmin(dim=1)  # (B, M)
+        dif_p2t = torch.gather(dif, 2, p2t_idx[:, :, None, None].expand(-1, -1, 1, 2))[:, :, 0]
+        loss_p2t = _per_sample_mean((pred_regress - dif_p2t) ** 2, pred_mask[:, :, None])
+        reg_t2p = torch.gather(pred_regress, 1, t2p_idx[:, :, None].expand(-1, -1, 2))
+        # dif[b, t2p_idx[b, j], j]: the offset from target j's match to target j
+        dif_t2p = torch.gather(dif, 1, t2p_idx[:, None, :, None].expand(-1, 1, -1, 2))[:, 0]
+        loss_t2p = _per_sample_mean((reg_t2p - dif_t2p) ** 2, tmask[:, :, None])
+        return loss_p2t, loss_t2p
+
+    full_p2t, full_t2p = one_direction(target_pts, target_mask)
+    _, key_t2p = one_direction(key_pts, key_mask)
+    loss = 1.0 * full_p2t + 0.1 * full_t2p + 2.0 * key_t2p               # (B,)
+    return torch.where((pred_mask > 0).any(dim=1), loss, torch.zeros_like(loss)).mean()
 
 
 def ellipse_param_loss(preds: torch.Tensor, gt: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,11 @@
 """Train state -- the port's counterpart of vaeplay_tpu/train/state.py.
 
-  TrainState         one optimizer (BP, BE): the model, `torch.optim.Adam`
+  TrainState         one optimizer (BP, BE, BC): the model, `torch.optim.Adam`
                      (betas (0.9, 0.999) unless given, eps 1e-8, as the JAX
                      package's `torch_adam` gives optax.adam) over the
                      parameters that require a gradient, its learning-rate
                      schedule and the count of optimizer steps.
-  frozen_backbone_adam  BE's state: the JAX package's `frozen_backbone_adam`
+  frozen_backbone_adam  BE's and BC's state: the JAX package's `frozen_backbone_adam`
                      and `stop_frozen_gradients` (state.py:96-139) as one
                      rule, torchvision's trainable_layers=3: every backbone's
                      body.conv1 and body.layer1 stop requiring a gradient, so
@@ -40,6 +40,17 @@ def step_lr_every_two_epochs(iterations: int) -> Callable[[int], float]:
 
     def factor(step: int) -> float:
         return 0.1 ** ((step // steps_per_epoch) // 2)
+
+    return factor
+
+
+def step_lr_by_epoch(iterations: int) -> Callable[[int], float]:
+    """BC's schedule, StepLR(10, 0.5) counted in epochs of `iterations`
+    optimizer steps (vaeplay_tpu/cli/train_bc.py:114-116), as a LambdaLR
+    factor of the step count."""
+
+    def factor(step: int) -> float:
+        return 0.5 ** ((step // iterations) // 10)
 
     return factor
 
@@ -110,13 +121,14 @@ def freeze_backbone_stem(model: nn.Module) -> List[str]:
 
 
 def frozen_backbone_adam(model: nn.Module, lr: float,
-                         betas: Tuple[float, float] = (0.9, 0.999)) -> TrainState:
-    """A TrainState whose Adam (constant lr, `betas`) trains everything but
-    the frozen backbone stem and layer1 (freeze_backbone_stem); raises when
-    the model has no such parameters."""
+                         betas: Tuple[float, float] = (0.9, 0.999),
+                         schedule: Callable[[int], float] = lambda step: 1.0) -> TrainState:
+    """A TrainState whose Adam (lr times `schedule`'s factor, `betas`) trains
+    everything but the frozen backbone stem and layer1
+    (freeze_backbone_stem); raises when the model has no such parameters."""
     if not freeze_backbone_stem(model):
         raise ValueError("the model has no backbone body.conv1/body.layer1 parameters to freeze")
-    return TrainState.create(model, lr, betas=betas)
+    return TrainState.create(model, lr, schedule, betas)
 
 
 @dataclass
