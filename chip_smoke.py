@@ -19,6 +19,9 @@ Phases, in order; each raises on failure and nothing is caught:
               RefineNet's shape (BC: B 8 and 32, N 258, Dk 32, Dv 256) both
               layouts and both dtypes against the plain version, the
               gradients, and at B = 32 the kernel, plain and library times.
+              And at BCP's point-attention shape (B 16 and 4, N 2048, Dk 32,
+              Dv 260) the same, whether the model's layout is copied, the
+              times at both batches and the plain backward's at B = 16.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -120,8 +123,34 @@ Phases, in order; each raises on failure and nothing is caught:
               every gradient and every buffer; then with contours traced, the
               binary masks agree except within 1e-6 of the threshold and every
               sample with equal masks traces the same points.
+18. bcp-infer -- BCP (contour point classification and regression)
+              inference through the port's test_bcp CLI at 512 px, batch 4,
+              2048 points, full width (two 8-block towers, the class head to
+              2048 channels), seeded random weights: --debug and --path over
+              a synthetic class-2/3 tree, each writing its grids; then a
+              warm-up and three timed batches (the host trace of channel 1
+              apart from the copy and forward), the peak device memory, the
+              forward's FLOPs and bound (bcp_flops), a profile; then the
+              point-attention forward at batch 4, 3 launches each.
+19. bcp-train -- BCP training through the port's train_bcp CLI at 512 px,
+              batch 16, 2048 points, full width (D's first local layer 8192
+              -> 8192): f32 for an epoch of 3 iterations, a resume of it for a
+              second, bf16 for an epoch of 2, f32 with --point_attention for
+              an epoch of 2 (3 launches an iteration), test_bcp on the resumed
+              run dir (each run dir deleted once checked). Then G's and D's
+              parameter counts, and in f32, bf16 and f32 with point attention
+              the step's FLOPs and bound, a warm-up and three timed steps with
+              the copy, G's forward, the D phase and the G phase apart, the
+              peak device memory and a profile of a step.
+20. bcp parity -- one BCP step at 128 px, batch 2, full width, 128 points,
+              with and without point attention, on the card and on the CPU
+              (TF32 off): in f32 the eight losses and both nets' weights after
+              the step (plus Adam's first-step slope times the gradients'
+              difference), in f64 (the plain attention on both) the losses and
+              both nets' gradients.
 The attention kernel is on no path of phases 7-14: its launch count must
-not move there. Phases 15-16 are driven with the count set to 0 before them.
+not move there. Phases 15-16 and 18-19 are driven with the count set to 0
+before them.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -248,6 +277,28 @@ BC_SHAPES = [(BC_INFER_BATCH, 258, 32, 256), (BC_TRAIN_BATCH, 258, 32, 256)]
 # CPU's probability is within BC_PROB_MARGIN of the 0.5 threshold
 BC_PARITY = dict(img=128, batch=2, points=32)
 BC_PROB_MARGIN = 1e-6
+# BCP at the JAX CLIs' defaults (train_bcp.py:37-45, test_bcp.py:30-32): 512
+# px, up to 2048 contour points, test_bcp batch 4, train_bcp batch 16; G's two
+# 8-block towers of 64 channels, the class head widening to 2048 channels, D's
+# local branch from 2048 x 4 = 8192 inputs. The CLI runs an epoch of
+# BCP_ITERATIONS[run] iterations ("attention": f32 with --point_attention);
+# BCP_TIMED steps are timed after a warm-up
+BCP_IMG, BCP_POINTS, BCP_INFER_BATCH, BCP_TRAIN_BATCH = 512, 2048, 4, 16
+BCP_ITERATIONS = {"float32": 3, "bfloat16": 2, "attention": 2}
+BCP_TIMED = 3
+BCP_PER_FORWARD = 3  # attention launches with --point_attention: the three point blocks
+# (B, N, Dk, Dv) of the point attention: 2048 points as positions, 2 x 128 + 4
+# point features as channels, q/k reduced 8x; at train_bcp's and test_bcp's batch
+BCP_SHAPES = [(BCP_TRAIN_BATCH, BCP_POINTS, 32, 260), (BCP_INFER_BATCH, BCP_POINTS, 32, 260)]
+# phase 20 on the CPU as well: 128 px, batch 2, full width, 128 points, with
+# and without point attention; BE_PARITY_TOL's bounds, and in f32 the weights
+# after the step also Adam's first-step slope lr / eps times the gradients'
+# difference (a gradient of rounding size may take either sign)
+BCP_PARITY = dict(img=128, batch=2, points=128, lr=1e-3)
+# an attention block's k bias has a true gradient of 0 (the softmax takes out
+# a per-row shift): it is held to its layer's weight gradient's bound
+BCP_ZERO_GRADS = {f"grad g line_predictor.batch_attention.{i}.k.conv.0.bias":
+                  f"grad g line_predictor.batch_attention.{i}.k.conv.0.weight" for i in range(3)}
 
 
 def gpu_line() -> str:
@@ -477,6 +528,54 @@ def phase_kernels_bc(gpu: str) -> dict:
             "bc_launches": None}
 
 
+def phase_kernels_bcp(gpu: str) -> dict:
+    """Phase 2 at BCP's point-attention shape: the kernel against the plain
+    version at BCP_SHAPES (B 16 and 4, N 2048, Dk 32, Dv 260: one block of
+    264 value columns, the last 4 masked) in both layouts and both dtypes,
+    the Function's gradients in both layouts, whether the model's
+    channel-major k and v reach the kernel with no copy, then at each batch
+    the times of the kernel, the plain version and the library call
+    (channel-major), and at B = 16 the plain backward's. Returns the kernel
+    line's BCP keys (bcp_* at B = 16, bcp_b4_* at B = 4)."""
+    from vaeplay_torch.ops import attention
+
+    out = {}
+    for i, shape in enumerate(BCP_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("n", "c"):
+                e = _check_case(shape, dtype, layout, 1.0, seed=400 + i)
+                if dtype == torch.float32 and layout == "c":
+                    out["bcp_max_abs_err" if i == 0 else "bcp_b4_max_abs_err"] = e
+        for layout in ("c", "n"):
+            _grad_check(shape, layout, 1.0, seed=410 + i)
+    q, k, v = _qkv(BCP_SHAPES[0], torch.float32, seed=0, layout="c")
+    copied = not (attention._tma_operand(k) is k and attention._tma_operand(v) is v)
+    print(f"[kernels] BCP shape f32, channel-major (the model's layout): k and v "
+          f"{'COPIED' if copied else 'read with no copy'} by _tma_operand (row stride "
+          f"{k.stride(2) * 4} bytes)")
+    for key, shape in (("bcp", BCP_SHAPES[0]), ("bcp_b4", BCP_SHAPES[1])):
+        ms, plain_ms, library_ms = _forward_times(shape, "c")
+        bound_ms, bound_by, flops = _forward_bound(shape)
+        print(f"[kernels] BCP shape B,N,Dk,Dv={shape} f32, channel-major, on {gpu}: kernel_ms "
+              f"{ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f}, bound_ms "
+              f"{bound_ms:.4f} ({bound_by}: {TF32_PASSES} x {flops / 1e9:.2f} GFLOP at "
+              f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), {bound_ms / ms:.1%} of its bound")
+        out.update({f"{key}_shape": list(shape), f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                    f"{key}_bound_ms": bound_ms, f"{key}_bound_by": bound_by,
+                    f"{key}_library_ms": library_ms})
+    b, n, dk, dv = BCP_SHAPES[0]
+    g = _qkv(BCP_SHAPES[0], torch.float32, seed=1000, layout="c")[2]
+    bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=10)
+    bwd_flops = 2.0 * b * n * n * (3 * dk + 2 * dv)
+    print(f"[kernels] BCP backward at B={b}, f32 (no TF32), channel-major, on {gpu}: "
+          f"attention_backward_ms {bwd_ms:.4f} (recompute: 5 bmm + softmax over "
+          f"{b * n * n * 4 / 2**20:.0f} MiB N x N buffers); {bwd_flops / 1e9:.2f} GFLOP, "
+          f"{bwd_flops / PEAK_F32_FLOPS * 1e3:.4f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32; "
+          f"backward / forward kernel {bwd_ms / out['bcp_ms']:.2f}")
+    out.update(bcp_backward_ms=bwd_ms, bcp_copied=copied, bcp_launches=None)
+    return out
+
+
 def phase_kernel_backward(gpu: str) -> None:
     """Phase 2's autograd half: the Function's gradients at the BP shape and
     the ragged shapes in both layouts; then, at the shape the training path
@@ -595,7 +694,9 @@ def _group(kernel: str, ops, transposed: bool = False) -> str:
     if node.startswith("Upsample") or any(o.startswith("aten::upsample") for o in ops):
         return "upsampling (bilinear, nearest)" + (", backward" if node else "")
     if node.startswith(("CudnnBatchNormBackward", "NativeBatchNormBackward")):
-        return "BatchNorm, backward"
+        return "BatchNorm / InstanceNorm, backward"
+    if "aten::instance_norm" in ops:
+        return "InstanceNorm, forward"
     if "aten::batch_norm" in ops:
         return "BatchNorm, forward"
     if node.startswith("ConvolutionBackward"):
@@ -608,7 +709,7 @@ def _group(kernel: str, ops, transposed: bool = False) -> str:
     if "gemm" in kernel:
         return "GEMMs (linear layers, 1x1 convolutions)" + (", backward" if node else "")
     if node.startswith("GridSampler") or any(o.startswith("aten::grid_sampler") for o in ops):
-        return "bicubic point sampling" + (", backward" if node else "")
+        return "point sampling (grid_sample)" + (", backward" if node else "")
     if "copy" in kernel:
         return "tensor copies (.contiguous, layout)"
     return "elementwise and other" + (", backward" if node else "")
@@ -2217,6 +2318,427 @@ def phase_bc_parity() -> None:
         raise AssertionError("the card's traced contours disagree with the CPU's")
 
 
+def random_bcp_model(seed: int = 0, points: int = BCP_POINTS, point_attention: bool = False):
+    """A seeded BCP ComposeNet, every attention gamma drawn (_draw_gammas)."""
+    from vaeplay_torch.models.bcp import ComposeNet
+
+    model = ComposeNet(points, point_attention, generator=torch.Generator().manual_seed(seed))
+    _draw_gammas(model, torch.Generator().manual_seed(seed + 1))
+    return model
+
+
+def bcp_flops(img: int, points: int = BCP_POINTS, point_attention: bool = False) -> dict:
+    """Multiply-adds x 2 of one image through each part of the BCP step,
+    {part: (forward, backward)}, from the layer shapes: every Conv2d and
+    Linear of G and D, counted by hooks on a batch of 2 on the meta device,
+    and the attention's two products from (N, Dk, Dv) (its backward the
+    recompute VJP's five). "g" is G's forward and the backward the G phase
+    takes through it; "d_phase" D on the real and the fake points with its
+    weight gradients; "g_phase" D on the fake points again, with input
+    gradients only. A layer's backward costs its forward once for the
+    weight gradient, if it is taken, and once for the input gradient, if
+    its input needs one."""
+    from vaeplay_torch.models.bcp import ComposeNet, Discriminator
+
+    with torch.device("meta"):
+        g = ComposeNet(points, point_attention).train()
+        d = Discriminator(img, points).train()
+    out, part = {"g": [0, 0], "d_phase": [0, 0], "g_phase": [0, 0]}, ["g"]
+
+    def hook(m, inputs, y):
+        x = inputs[0]
+        if isinstance(m, torch.nn.Conv2d):
+            f = 2 * y.numel() // y.shape[0] * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+        else:
+            f = 2 * y.numel() // y.shape[0] * m.in_features
+        out[part[0]][0] += f
+        out[part[0]][1] += f * (int(m.weight.requires_grad) + int(x.requires_grad))
+
+    for m in list(g.modules()) + list(d.modules()):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            m.register_forward_hook(hook)
+    x = torch.zeros(2, 3, img, img, device="meta")
+    with plain_attention():  # the kernel takes no meta tensor; its products are counted below
+        preds = g(x, torch.zeros(2, points, 2, device="meta"),
+                  torch.full((2,), points, dtype=torch.int32, device="meta"))
+    if point_attention:
+        n, dk, dv = points, 32, 260
+        out["g"][0] += 3 * 2 * n * n * (dk + dv)
+        out["g"][1] += 3 * 2 * n * n * (3 * dk + 2 * dv)
+    fake = torch.cat([preds["contours"], preds["target_pts"]], dim=-1)
+    part[0] = "d_phase"
+    d(x, torch.zeros(2, points, 4, device="meta"))
+    d(x, fake.detach())
+    part[0] = "g_phase"
+    d.requires_grad_(False)
+    d(x, fake)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _check_bcp_preds(preds, batch: int, points: int) -> None:
+    shapes = {"classes": (batch, 2), "contours": (batch, points, 2), "contour_counts": (batch,),
+              "target_pts": (batch, points, 2), "target_frequency": (batch, points)}
+    for name, shape in shapes.items():
+        t = preds[name]
+        if tuple(t.shape) != shape or (t.is_floating_point() and not bool(torch.isfinite(t).all())):
+            raise AssertionError(f"{name}: shape {tuple(t.shape)} (want {shape}) or not finite")
+    freq = preds["target_frequency"]
+    if float(freq.min()) < 0 or float(freq.max()) > 1:
+        raise AssertionError("trigger probabilities outside [0, 1]")
+
+
+def write_bcp_test_tree(root: str, n: int, img: int) -> str:
+    """A BCPDatasetTEST tree under root: class dirs "2" and "3", n samples of
+    synthetic emit bubbles (SyntheticBCPDataset), each an image, its `_mask2`
+    (the bubble image, channel 0) and its `_layer` (the content mask red and
+    its ring green, on white: the reference's layer encoding)."""
+    import numpy as np
+    from PIL import Image
+
+    from vaeplay_torch.data.bcp_data import SyntheticBCPDataset
+
+    imgs = SyntheticBCPDataset(img_size=img, max_points=16).sample_batch(n, 9)["imgs"]
+    for i in range(n):
+        folder = os.path.join(root, "2" if i % 2 else "3")
+        os.makedirs(folder, exist_ok=True)
+        gray = (imgs[i, :, :, 0] * 255).astype(np.uint8)
+        for suffix in ("", "_mask2"):
+            Image.fromarray(gray).save(os.path.join(folder, f"p{i}{suffix}.png"))
+        layer = np.full((img, img, 3), 255, np.uint8)
+        layer[imgs[i, :, :, 1] > 0] = (255, 0, 0)
+        layer[imgs[i, :, :, 2] > 0] = (255, 255, 0)
+        Image.fromarray(layer).save(os.path.join(folder, f"p{i}_layer.png"))
+    return root
+
+
+def phase_bcp_infer(tmp: str, gpu: str) -> None:
+    """BCP inference through the test_bcp CLI on cuda:0 at 512 px, batch 4,
+    2048 points, full width, seeded random weights: --debug (one synthetic
+    batch) and --path over a synthetic class-2/3 tree; then timed batches
+    with the host trace apart (eval_contours_from_masks on the host batch,
+    then the copy and the forward), the peak memory, the forward's FLOPs and
+    bound, a profile; then the point-attention forward at batch 4, which
+    launches the kernel BCP_PER_FORWARD times (test_bcp's G has no
+    attention, as the JAX CLI's)."""
+    from vaeplay_torch.cli import test_bcp
+    from vaeplay_torch.data.bcp_data import SyntheticBCPDataset
+    from vaeplay_torch.models.bcp import eval_contours_from_masks
+    from vaeplay_torch.ops import attention
+
+    dev = torch.device("cuda", 0)
+    weights = os.path.join(tmp, "bcp_random.pt")
+    torch.save(random_bcp_model(0).state_dict(), weights)
+    data = write_bcp_test_tree(os.path.join(tmp, "bcp_data"), BCP_INFER_BATCH + 2, BCP_IMG)
+    for label, extra, grids in (("--debug", ["--debug"], ["points.png"]),
+                                ("--path", ["--path", data], ["points_0.png", "points_1.png"])):
+        before = attention.flash_attention.launches
+        t0 = time.perf_counter()
+        written = test_bcp.main(["--model_path", weights, "--gpu", "0", "--img_size",
+                                 str(BCP_IMG), "--max_points", str(BCP_POINTS), "--batchsize",
+                                 str(BCP_INFER_BATCH), "--res_output",
+                                 os.path.join(tmp, f"bcp_test{len(grids)}"), *extra])
+        launches = attention.flash_attention.launches - before
+        print(f"[bcp-infer] CLI run {label} (load, {len(grids)} batch(es) of up to "
+              f"{BCP_INFER_BATCH} at {BCP_IMG} px, grids) {time.perf_counter() - t0:.2f} s; "
+              f"wrote {written}")
+        if ([os.path.basename(p) for p in written] != grids or launches
+                or not all(os.path.getsize(p) > 0 for p in written)):
+            raise AssertionError(f"test_bcp {label} wrote {written} with {launches} launches")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = test_bcp.load_model(weights, BCP_POINTS, dev)
+    ds = SyntheticBCPDataset(img_size=BCP_IMG, max_points=BCP_POINTS,
+                             data_size=(BCP_TIMED + 1) * BCP_INFER_BATCH, seed=5)
+    batches = [b["imgs"] for b in ds.epoch_batches(BCP_INFER_BATCH)]
+    times, traces = [], []
+    for i, imgs in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts, counts = eval_contours_from_masks(imgs, BCP_POINTS)
+        t1 = time.perf_counter()
+        preds = test_bcp.forward(model, imgs, pts, counts, dev)
+        torch.cuda.synchronize()
+        ms, trace_ms = (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+        _check_bcp_preds(preds, BCP_INFER_BATCH, BCP_POINTS)
+        if i:
+            times.append(ms)
+            traces.append(trace_ms)
+        print(f"[bcp-infer] batch {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms (PyTorch "
+              f"defaults: TF32 convolutions; batch {BCP_INFER_BATCH}, {BCP_IMG} px, host clock), "
+              f"of which the host trace {trace_ms:.2f} ms ({trace_ms / ms:.1%}) and the copy and "
+              f"forward {ms - trace_ms:.2f} ms; counts {counts.tolist()} on {gpu}")
+    print(f"[bcp-infer] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights and activations)")
+    fwd = bcp_flops(BCP_IMG)["g"][0] * BCP_INFER_BATCH
+    median, trace = sorted(times)[len(times) // 2], sorted(traces)[len(traces) // 2]
+    print(f"[bcp-infer] forward {fwd / 1e12:.3f} TFLOP a batch, bound "
+          f"{fwd / PEAK_TF32_FLOPS * 1e3:.3f} ms at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32; "
+          f"median batch {median:.2f} ms, {BCP_INFER_BATCH / median * 1e3:.1f} images/s, host "
+          f"trace {trace:.2f} ms ({trace / median:.1%}), {fwd / PEAK_TF32_FLOPS * 1e3 / median:.1%} "
+          f"of the bound on {gpu}")
+    _profile(lambda: test_bcp.predict(model, batches[1], dev), "bcp-infer", runs=1)
+
+    model = random_bcp_model(1, point_attention=True).to(dev).eval()
+    pts, counts = eval_contours_from_masks(batches[1], BCP_POINTS)
+    times = []
+    for i in range(BCP_TIMED + 1):
+        before = attention.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = test_bcp.forward(model, batches[1], pts, counts, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_bcp_preds(preds, BCP_INFER_BATCH, BCP_POINTS)
+        if attention.flash_attention.launches - before != BCP_PER_FORWARD:
+            raise AssertionError(f"a point-attention forward did not launch the kernel "
+                                 f"{BCP_PER_FORWARD} times")
+    print(f"[bcp-infer] point-attention forward (random gammas), batch {BCP_INFER_BATCH}: "
+          f"copy and forward " + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms (the first a warm-up), {BCP_PER_FORWARD} kernel launches each, on {gpu}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _check_bcp_run(run: str, epoch: int, label: str) -> None:
+    """A train_bcp run dir of one epoch: its checkpoint and one log line of
+    the eight losses, finite."""
+    from vaeplay_torch.train.steps_bcp import METRIC_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in METRIC_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[bcp-train] {label} epoch {epoch}: " + " ".join(f"{k}={r[k]:.4f}" for k in METRIC_KEYS)
+          + f" ({r['images_per_sec']:.1f} img/s over the epoch, CLI's host clock); checkpoint "
+          f"{os.path.getsize(os.path.join(run, f'{epoch}.ckpt')) / 2**30:.2f} GiB")
+
+
+def _bcp_cli(tmp: str, name: str, label: str, *extra) -> str:
+    """train_bcp at 512 px, batch 16, 2048 points: label "float32",
+    "bfloat16" or "attention" (f32 with --point_attention)."""
+    from vaeplay_torch.cli import train_bcp
+    from vaeplay_torch.ops import attention
+
+    n = BCP_ITERATIONS[label]
+    flags = ["--point_attention"] if label == "attention" else []
+    before = attention.flash_attention.launches
+    t0 = time.perf_counter()
+    run = train_bcp.main(["--gpu", "0", "--img_size", str(BCP_IMG), "--max_points",
+                          str(BCP_POINTS), "--batchsize", str(BCP_TRAIN_BATCH), "--iterations",
+                          str(n), "--viz_freq", str(n), "--dtype",
+                          "bfloat16" if label == "bfloat16" else "float32", *flags,
+                          "--res_output", os.path.join(tmp, "bcp_results"),
+                          "--model_output", os.path.join(tmp, name), *extra])
+    launches = attention.flash_attention.launches - before
+    print(f"[bcp-train] CLI run {label} {' '.join(extra)} (init, {n} iterations, checkpoint) "
+          f"{time.perf_counter() - t0:.2f} s, {launches} kernel launches: {run}")
+    if launches != (BCP_PER_FORWARD * n if flags else 0):
+        raise AssertionError(f"train_bcp {label} launched the kernel {launches} times in "
+                             f"{n} iterations")
+    return run
+
+
+def _bcp_timed(label: str, gpu: str) -> tuple:
+    """A warm-up and BCP_TIMED steps of make_bcp_train_step (label as
+    _bcp_cli's) at PyTorch's defaults, the batch's copy, G's forward, the D
+    phase and the G phase timed apart on the host clock (each ending in a
+    synchronize); the peak device memory. Returns (step, state, a batch on
+    the card) for a profile, and the median (copy, forward, D, G, step) ms."""
+    from vaeplay_torch.cli.train_bcp import build_state, device_batch
+    from vaeplay_torch.data.bcp_data import SyntheticBCPDataset
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.steps_bcp import make_bcp_train_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pa = label == "attention"
+    gs = build_state(BCP_IMG, BCP_POINTS, 1e-3, 1e-3, 0, dev, pa)
+    gs.g.model.train()
+    gs.d.model.train()
+    step = make_bcp_train_step(gs.g.model, gs.d.model,
+                               torch.bfloat16 if label == "bfloat16" else torch.float32)
+    ds = SyntheticBCPDataset(img_size=BCP_IMG, max_points=BCP_POINTS,
+                             data_size=(BCP_TIMED + 2) * BCP_TRAIN_BATCH)
+    host = list(ds.epoch_batches(BCP_TRAIN_BATCH))
+    times = []
+    for i, b in enumerate(host[:BCP_TIMED + 1]):
+        before = attention.flash_attention.launches
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        batch = device_batch(b, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        preds = step.forward(*batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        gs, dm = step.d_phase(gs, preds, *batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        gs, gm = step.g_phase(gs, preds, *batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        del preds
+        if not all(bool(torch.isfinite(v)) for v in {**dm, **gm}.values()):
+            raise AssertionError(f"non-finite losses: {dm} {gm}")
+        if attention.flash_attention.launches - before != (BCP_PER_FORWARD if pa else 0):
+            raise AssertionError(f"a {label} BCP step launched the kernel "
+                                 f"{attention.flash_attention.launches - before} times")
+        ms = tuple((t[j + 1] - t[j]) * 1e3 for j in range(4)) + ((t[4] - t[0]) * 1e3,)
+        if i:
+            times.append(ms)
+        print(f"[bcp-train] {label} step {i}{' (warm-up)' if i == 0 else ''}: copy {ms[0]:.2f} "
+              f"ms, G forward {ms[1]:.2f} ms, D phase {ms[2]:.2f} ms, G phase {ms[3]:.2f} ms, "
+              f"step {ms[4]:.2f} ms, {BCP_TRAIN_BATCH / ms[4] * 1e3:.1f} images/s (PyTorch "
+              f"defaults; batch {BCP_TRAIN_BATCH}, {BCP_IMG} px, host clock) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[bcp-train] {label} peak device memory {peak:.2f} GiB (torch.cuda."
+          f"max_memory_allocated: both nets' weights, gradients, Adam moments, activations)")
+    medians = tuple(sorted(t[j] for t in times)[len(times) // 2] for j in range(5))
+    return (step, gs, device_batch(host[-1], dev)), medians
+
+
+def phase_bcp_train(tmp: str, gpu: str) -> dict:
+    """BCP through the train_bcp CLI at 512 px, batch 16, 2048 points, full
+    width: f32 for one epoch, a resume for a second, bf16 for one epoch, f32
+    with --point_attention for one epoch (3 launches an iteration), test_bcp
+    on the resumed run dir (each run dir deleted once checked); then the
+    parameter counts, the step's FLOPs and bound, and timed steps with the
+    phases apart and a profile in each of f32, bf16 and f32 with point
+    attention. Returns the median step ms by run."""
+    from vaeplay_torch.cli import test_bcp
+    from vaeplay_torch.models.bcp import ComposeNet, Discriminator
+
+    run = _bcp_cli(tmp, "bcp_a", "float32", "--epoch", "1")
+    _check_bcp_run(run, 0, "float32")
+    resumed = _bcp_cli(tmp, "bcp_b", "float32", "--epoch", "2", "--resume", run)
+    _check_bcp_run(resumed, 1, "float32")
+    shutil.rmtree(os.path.join(tmp, "bcp_a"))
+    for label in ("bfloat16", "attention"):
+        _check_bcp_run(_bcp_cli(tmp, f"bcp_{label}", label, "--epoch", "1"), 0, label)
+        shutil.rmtree(os.path.join(tmp, f"bcp_{label}"))
+    written = test_bcp.main(["--model_path", resumed, "--gpu", "0", "--img_size", str(BCP_IMG),
+                             "--max_points", str(BCP_POINTS), "--batchsize",
+                             str(BCP_INFER_BATCH), "--res_output", os.path.join(tmp, "bcp_trained")])
+    if len(written) != 1 or not os.path.getsize(written[0]):
+        raise AssertionError(f"test_bcp on the trained run dir wrote {written}")
+    print(f"[bcp-train] test_bcp --model_path <run dir> wrote {written}")
+    shutil.rmtree(os.path.join(tmp, "bcp_b"))
+
+    with torch.device("meta"):
+        counts = {name: sum(p.numel() for p in m.parameters()) for name, m in (
+            ("G", ComposeNet(BCP_POINTS)), ("G with point attention",
+                                            ComposeNet(BCP_POINTS, True)),
+            ("D", Discriminator(BCP_IMG, BCP_POINTS)))}
+    print("[bcp-train] parameters: " + ", ".join(f"{k} {v / 1e6:.2f} M" for k, v in counts.items()))
+    medians = {}
+    for label, peak, rate in (("float32", PEAK_TF32_FLOPS, "TF32"),
+                              ("bfloat16", PEAK_BF16_FLOPS, "bf16"),
+                              ("attention", PEAK_TF32_FLOPS, "TF32")):
+        flops = bcp_flops(BCP_IMG, BCP_POINTS, label == "attention")
+        step_flops = sum(sum(v) for v in flops.values()) * BCP_TRAIN_BATCH
+        print(f"[bcp-train] {label} GFLOP per image from the layer shapes (forward, backward): "
+              + "; ".join(f"{k} {v[0] / 1e9:.2f}, {v[1] / 1e9:.2f}" for k, v in flops.items())
+              + f"; step ({BCP_TRAIN_BATCH} images) {step_flops / 1e12:.3f} TFLOP, bound "
+              f"{step_flops / peak * 1e3:.2f} ms at {peak / 1e12:.0f} TFLOP/s {rate} (dense "
+              f"tensor-core rate, 700 W)")
+        profiled = None  # the previous state is freed before this peak is taken
+        profiled, ms = _bcp_timed(label, gpu)
+        medians[label] = ms[4]
+        print(f"[bcp-train] {label} median copy {ms[0]:.2f} ms, G forward {ms[1]:.2f} ms, D phase "
+              f"{ms[2]:.2f} ms, G phase {ms[3]:.2f} ms, step {ms[4]:.2f} ms, "
+              f"{BCP_TRAIN_BATCH / ms[4] * 1e3:.1f} images/s, {step_flops / ms[4] / 1e9:.1f} "
+              f"TFLOP/s, {step_flops / peak * 1e3 / ms[4]:.1%} of the {rate} bound on {gpu}")
+        step, gs, batch = profiled
+        _profile(lambda: step(gs, *batch), f"bcp-train {label}", runs=1)
+        del step, gs, batch
+    del profiled
+    torch.cuda.empty_cache()
+    return medians
+
+
+def phase_bcp_parity() -> None:
+    """One BCP step (G forward, D phase, G phase) on the card and on the CPU
+    from the same seeded weights (full width, gammas drawn), noise images
+    and synthetic points (128 px, batch 2, 128 points), with and without
+    point attention, TF32 off. f32 (the kernel on the card): the eight
+    losses, and both nets' weights after the step within the bound plus
+    Adam's first-step slope lr / eps times the gradients' difference. f64
+    (the plain attention on both, the kernel taking no f64): the eight
+    losses and both nets' gradients."""
+    import numpy as np
+
+    from vaeplay_torch.data.bcp_data import SyntheticBCPDataset
+    from vaeplay_torch.models.bcp import Discriminator
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.state import GanState, TrainState
+    from vaeplay_torch.train.steps_bcp import METRIC_KEYS, make_bcp_train_step
+
+    cfg = BCP_PARITY
+    b, img, points, lr = cfg["batch"], cfg["img"], cfg["points"], cfg["lr"]
+    data = SyntheticBCPDataset(img_size=img, max_points=points).sample_batch(b, 3)
+    data["pmask"][1, points - 9:] = 0
+    imgs = np.random.default_rng(11).uniform(size=(b, 3, img, img))
+    d_base = Discriminator(img, points, generator=torch.Generator().manual_seed(8))
+    for pa in (False, True):
+        g_base = random_bcp_model(7, points, pa)
+        for dtype in (torch.float32, torch.float64):
+            results = []
+            for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+                g = copy.deepcopy(g_base).to(dev, dtype).train()
+                d = copy.deepcopy(d_base).to(dev, dtype).train()
+                gs = GanState(TrainState.create(g, lr), TrainState.create(d, lr))
+                to = lambda a: torch.as_tensor(a).to(dev, dtype)
+                batch = (to(imgs), torch.as_tensor(data["labels"]).to(dev), to(data["points"]),
+                         to(data["pmask"]))
+                before = attention.flash_attention.launches
+                with plain_attention() if dtype == torch.float64 else contextlib.nullcontext():
+                    _, m = make_bcp_train_step(g, d)(gs, *batch)
+                launched = attention.flash_attention.launches - before
+                want = BCP_PER_FORWARD if pa and dev.type == "cuda" and dtype == torch.float32 else 0
+                if launched != want:
+                    raise AssertionError(f"the {dtype} step on {dev} launched the kernel "
+                                         f"{launched} times, not {want}")
+                got = {f"{kind} {net} {k}": (p.grad if kind == "grad" else p).detach().cpu()
+                       for net, model in (("g", g), ("d", d)) for k, p in model.named_parameters()
+                       for kind in ("grad", "weight")}
+                results.append((got, {k: v.cpu() for k, v in m.items()}))
+            (ref_t, ref_m), (got_t, got_m) = results
+            tol = BE_PARITY_TOL[dtype]
+            worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in METRIC_KEYS)
+            if dtype == torch.float64:
+                held = {k: _worst(got_t[k], ref_t[k], tol,
+                                  float(ref_t[BCP_ZERO_GRADS.get(k, k)].abs().max()))
+                        for k in ref_t if k.startswith("grad")}
+            else:  # weights: the bound plus Adam's slope at g = 0 times the gradients' difference
+                held = {}
+                for k in ref_t:
+                    if k.startswith("weight"):
+                        gk = "grad" + k[len("weight"):]
+                        slack = 1.001 * lr / 1e-8 * (got_t[gk] - ref_t[gk]).abs()
+                        bound = (tol[0] * float(ref_t[k].abs().max()) + tol[1] * ref_t[k].abs()
+                                 + slack)
+                        held[k] = float(((got_t[k] - ref_t[k]).abs() / bound.clamp(min=1e-30))
+                                        .max())
+            worst, name = max((v, k) for k, v in held.items())
+            label = f"{str(dtype)[6:]}{' point attention' if pa else ''}"
+            print(f"[bcp parity] {label} losses card vs CPU: " + " ".join(
+                f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in METRIC_KEYS))
+            print(f"[bcp parity] {label}: worst loss at {worst_loss:.2e} of its bound ({loss}), "
+                  f"worst of {len(held)} {'gradients' if dtype == torch.float64 else 'weights'} "
+                  f"at {worst:.2e} ({name}); bound atol {tol[0]:g} x max |ref| + rtol {tol[1]:g} "
+                  f"x |ref|{'' if dtype == torch.float64 else ' + lr / eps x |grad difference|'}")
+            if worst_loss > 1 or worst > 1 or not all(
+                    bool(torch.isfinite(t).all()) for t in list(got_t.values())
+                    + list(got_m.values())):
+                raise AssertionError(f"the card's {label} BCP step disagrees with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -2251,6 +2773,7 @@ def main(argv) -> int:
         kernel = phase_kernels(gpu)
         phase_kernel_backward(gpu)
         kernel.update(phase_kernels_bc(gpu))
+        kernel.update(phase_kernels_bcp(gpu))
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
         random_weights(weights)
@@ -2271,6 +2794,11 @@ def main(argv) -> int:
         phase_bc_train(tmp, gpu)
         kernel["bc_launches"] = attention.flash_attention.launches
         kernel["launches"] += kernel["bc_launches"]
+        attention.flash_attention.launches = 0
+        phase_bcp_infer(tmp, gpu)
+        phase_bcp_train(tmp, gpu)
+        kernel["bcp_launches"] = attention.flash_attention.launches
+        kernel["launches"] += kernel["bcp_launches"]
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
@@ -2280,6 +2808,7 @@ def main(argv) -> int:
         if attention.flash_attention.launches != before:
             raise AssertionError("a BE or BE_GAN parity step launched the attention kernel")
         phase_bc_parity()
+        phase_bcp_parity()
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,9 +13,10 @@ from vaeplay_torch.ops import attention
 from vaeplay_tpu.ops.attention import (_pallas_attention, _pallas_attention_bwd,
                                        _reference_attention)
 
-# tests/test_attention.py's shapes, plus BP's attention at a short N
+# tests/test_attention.py's shapes, plus BP's attention at a short N and
+# BCP's point attention (Dk 32, Dv 260, not a multiple of 8) at a short N
 SHAPES = [(2, 64, 4, 32), (2, 100, 8, 16), (2, 256, 16, 128), (2, 333, 5, 7),
-          (2, 64, 90, 720)]
+          (2, 64, 90, 720), (2, 128, 32, 260)]
 # position-major: a contiguous (B, N, C); channel-major: the (B, N, C)
 # transpose view of a contiguous (B, C, N), as SelfAttentionBlock passes them
 LAYOUTS = ["position_major", "channel_major"]

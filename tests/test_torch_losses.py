@@ -1,4 +1,4 @@
-"""The port's BP, VAE-GAN and BE_GAN losses (vaeplay_torch.ops.losses)
+"""The port's BP, VAE-GAN, BE_GAN and BCP losses (vaeplay_torch.ops.losses)
 against the JAX package's: values and gradients against jax.grad, on the
 CPU at f32 (BE_GAN's edge loss also in f64)."""
 
@@ -172,3 +172,32 @@ def test_edge_loss_value_and_gradient_match_jax():
     got.backward()
     np.testing.assert_allclose(float(got), want, rtol=1e-12)
     np.testing.assert_allclose(x.grad.numpy(), want_g, rtol=1e-9, atol=1e-12 * np.abs(want_g).max())
+
+
+@pytest.mark.parametrize("case", ["interior", "saturated"])
+def test_bce_value_and_gradient_match_jax(case):
+    """BCP's BCE on probabilities: values and the gradient with respect to the
+    probabilities against the JAX package's custom VJP, f32, exact to 1e-6
+    relative; saturated probabilities (0, 1, 1.5e-38, 1e-40, 1 - 6e-8) meet
+    torch's clamps (log terms at -100, the backward's denominator at 1e-12)
+    on both sides and stay finite. 1e-40 is subnormal in f32: XLA on the CPU
+    flushes it to 0, so the JAX value there is the clamp's 100, where torch
+    takes -log(1e-40) = 92.10; that one value is held to the latter."""
+    rng = np.random.default_rng(8)
+    if case == "interior":
+        p = rng.uniform(0.02, 0.98, 12).astype(np.float32)
+        t = (rng.uniform(size=12) < 0.5).astype(np.float32)
+    else:
+        p = np.array([0.0, 1.0, 1.5e-38, 1e-40, 1.0 - 6e-8, 0.0, 1.0, 0.5], np.float32)
+        t = np.array([1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0, 1.0], np.float32)
+    x = torch.from_numpy(p).requires_grad_()
+    got = TL.bce(x, torch.from_numpy(t))
+    got.sum().backward()
+    want, vjp = jax.vjp(lambda q: JL.bce(q, jnp.asarray(t)), jnp.asarray(p))
+    want, want_g = np.array(want), np.asarray(vjp(jnp.ones_like(want))[0])
+    subnormal = (p > 0) & (p < np.finfo(np.float32).tiny)
+    want[subnormal] = -np.log(p[subnormal].astype(np.float64))
+    assert subnormal.sum() == (case == "saturated")
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(x.grad).all())
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(x.grad.numpy(), want_g, rtol=1e-6, atol=0)

@@ -1,5 +1,5 @@
-"""Shared layer library -- port of vaeplay_tpu/core/layers.py (the parts BP
-and BE use).
+"""Shared layer library -- port of vaeplay_tpu/core/layers.py (the parts BP,
+BE, BC and BCP use).
 
 NCHW activations and torch weight layouts, with the reference's state_dict
 key names (reference models/blocks.py), so that
@@ -13,6 +13,9 @@ vaeplay_tpu/models/torch_convert.py reads a port state_dict unchanged:
   DenseBlock          blocks.py:36-50  `fc.0.weight` [`fc.0.bias`]; lrelu slope 0.2
   SelfAttentionBlock  blocks.py:67-95  SAGAN; `q`, `k`, `v` are 1x1 ConvBlocks
                                        with the default ReLU, `gamma` starts at 0
+  PointSelfAttentionBlock              SelfAttentionBlock over a point set
+                                       held as (B, C, N), the reference's
+                                       (B, C, N, 1) map (networks_BCP.py:80-84)
   add_coords/AddCoords blocks.py:97-112 [features, x along W, y along H]
   Up                  blocks.py:129-146 `conv.{0,1}`: two 3x3 BN ConvBlocks,
                                        then a bilinear 2x upsample
@@ -122,6 +125,19 @@ class SelfAttentionBlock(nn.Module):
                                      positions(self.v(x)))
         out = out.transpose(1, 2).reshape(b, c, h, w)
         return self.gamma * out + x
+
+
+class PointSelfAttentionBlock(SelfAttentionBlock):
+    """SelfAttentionBlock over a point set x (B, C, N), channels first: the
+    reference applies SelfAttentionBlock to the (B, C, N, 1) map
+    (networks_BCP.py:80-84), the JAX package holds the same computation on
+    (B, N, C) (core/layers.py:355-377). Channel-major, q, k and v come out
+    of the 1x1 convolutions in the layout the kernel reads with no copy, and
+    on the card the result is a contiguous (B, C, N) again. Attention runs over all N
+    points, padding included, as in the JAX package: there is no key mask."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x[..., None])[..., 0]
 
 
 def add_coords(x: torch.Tensor, normalize: bool = False) -> torch.Tensor:

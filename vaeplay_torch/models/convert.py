@@ -1,9 +1,9 @@
 """JAX (flax) parameters -> the port's state_dict.
 
 The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN, BE,
-BE_GAN and BC mappings (`bp_from_torch`, `vaegan_from_torch`,
+BE_GAN, BC and BCP mappings (`bp_from_torch`, `vaegan_from_torch`,
 `be_from_torch`, `be_gan_from_torch`, `be_gan_disc_from_torch`,
-`bc_from_torch`, and for the backbone
+`bc_from_torch`, `bcp_from_torch`, `bcp_disc_from_torch`, and for the backbone
 vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
 for trees given as nested mappings of numpy arrays (for example
 `jax.device_get(variables["params"])`). It imports neither JAX nor the JAX
@@ -25,6 +25,7 @@ Layout conversions:
 The reference's dead `ellipse_predictor.convs.*` tensors are not produced.
 """
 
+import math
 from typing import Dict, Mapping
 
 import numpy as np
@@ -32,7 +33,9 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, np.float32))
+    """An f32 tensor, or f64 for an f64 array (a test's gradient tree)."""
+    a = np.asarray(a)
+    return torch.tensor(a if a.dtype == np.float64 else a.astype(np.float32))
 
 
 def _conv(w):  # HWIO -> OIHW
@@ -52,13 +55,17 @@ def _lin_to_nchw_flat(w, c: int, h: int, ww: int):
 
 
 def _convblock(sd: Dict, prefix: str, p: Mapping) -> None:
+    """A ConvBlock's conv, and its bias where it has one (no norm)."""
     sd[f"{prefix}.conv.0.weight"] = _t(_conv(p["conv"]["kernel"]))
-    sd[f"{prefix}.conv.0.bias"] = _t(p["conv"]["bias"])
+    if "bias" in p["conv"]:
+        sd[f"{prefix}.conv.0.bias"] = _t(p["conv"]["bias"])
 
 
 def _linblock(sd: Dict, prefix: str, p: Mapping) -> None:
+    """A DenseBlock's linear layer, and its bias where it has one."""
     sd[f"{prefix}.fc.0.weight"] = _t(_lin(p["fc"]["kernel"]))
-    sd[f"{prefix}.fc.0.bias"] = _t(p["fc"]["bias"])
+    if "bias" in p["fc"]:
+        sd[f"{prefix}.fc.0.bias"] = _t(p["fc"]["bias"])
 
 
 def _attnblock(sd: Dict, prefix: str, p: Mapping) -> None:
@@ -302,4 +309,70 @@ def bc_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     for i in range(2):
         sd[f"refine_net.fc_blocks.{i}.weight"] = _t(_lin(rn[f"fc{i}"]["kernel"]))
         sd[f"refine_net.fc_blocks.{i}.bias"] = _t(rn[f"fc{i}"]["bias"])
+    return sd
+
+
+def _bcp_towers(enc: Mapping) -> Dict[str, Mapping]:
+    """BCP's encoder params as the dual layout {a{i}, b{i}: {c0, c1, c2:
+    {conv: {kernel[, bias]}}}}: the dual layout as it is, or the merged one
+    (m{i}: {c}_kernel_a/_b, {c}_bias_a, c1_bias_b; merge_encoder_params,
+    models/bcp.py) split back, moving kernels and biases unchanged."""
+    if not any(k.startswith("m") for k in enc):
+        return enc
+    dual = {}
+    for i in range(len(enc)):
+        m = enc[f"m{i}"]
+        for half in "ab":
+            dual[f"{half}{i}"] = {c: {"conv": {"kernel": m[f"{c}_kernel_{half}"],
+                                               **({"bias": m[f"{c}_bias_{half}"]}
+                                                  if f"{c}_bias_{half}" in m else {})}}
+                                  for c in ("c0", "c1", "c2")}
+    return dual
+
+
+def bcp_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/bcp.ComposeNet params, in the merged or the dual encoder
+    layout, -> state_dict of the port's BCP ComposeNet; the inverse of
+    torch_convert.bcp_from_torch. The point attention's blocks, which
+    bcp_from_torch does not map (the reference left them commented out),
+    battn{i} -> line_predictor.batch_attention.{i}."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, blk in _bcp_towers(params["encoder"]).items():
+        tower = "convs1" if name[0] == "a" else "convs2"
+        for j in range(3):
+            _convblock(sd, f"encoder.{tower}.{name[1:]}.convs.{j}", blk[f"c{j}"])
+    cls = params["cls_classifier"]
+    for i in range(len([k for k in cls if k.startswith("conv")])):
+        _convblock(sd, f"cls_classifier.convs.{i}", cls[f"conv{i}"])
+    for i in range(3):
+        _linblock(sd, f"cls_classifier.cls_convs.{i}", cls[f"fc{i}"])
+    lp = params["line_predictor"]
+    level = len([k for k in lp if k.startswith("freq") and k[4:].isdigit()])
+    for i in range(level):
+        _convblock(sd, f"line_predictor.frequency_encode_img.{i}", lp[f"freq{i}"])
+    _convblock(sd, f"line_predictor.frequency_encode_img.{level}", lp["freq_out"])
+    for prefix, name, n in (("frequency_encode_img_sub", "freq_fc", 3),
+                            ("frequency_head", "fh", 2), ("params_pred", "pp", 3),
+                            ("frequency_pred", "fp", 3)):
+        for i in range(n):
+            _linblock(sd, f"line_predictor.{prefix}.{i}", lp[f"{name}{i}"])
+    for i in range(len([k for k in lp if k.startswith("battn")])):
+        _attnblock(sd, f"line_predictor.batch_attention.{i}", lp[f"battn{i}"])
+    return sd
+
+
+def bcp_disc_state_dict_from_jax(params: Mapping, image_size: int) -> Dict[str, torch.Tensor]:
+    """JAX models/bcp.Discriminator params -> state_dict of the port's BCP
+    Discriminator; the inverse of torch_convert.bcp_disc_from_torch."""
+    level = int(math.log2(image_size)) - 2 - 1
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(level):
+        _convblock(sd, f"global_convs.{i}", params[f"g{i}"])
+    _convblock(sd, f"global_convs.{level}", params["g_out"])
+    for i in range(level):
+        _linblock(sd, f"local_convs.{2 * i}", params[f"l{i}a"])
+        _linblock(sd, f"local_convs.{2 * i + 1}", params[f"l{i}b"])
+    _linblock(sd, f"local_convs.{2 * level}", params["l_out"])
+    for i in range(5):
+        _linblock(sd, f"merge_convs.{i}", params[f"m{i}"])
     return sd

@@ -3,8 +3,9 @@ circle VAE-GAN and BE train on: the ellipse parameter L1 and the per-point
 emit-line loss (reference tools/ops.py), the VAE-GAN's loss pieces
 (reference models/networks.py:264-281), BE's mask/edge head loss
 (train_BE.py:58-60), BE_GAN's Laplacian edge loss (tools/ops.py:187-214),
-BC's chamfer point-regression loss (tools/ops.py:21-66), and the helpers
-they use. Functions
+BC's chamfer point-regression loss (tools/ops.py:21-66), BCP's BCE on
+probabilities (torch's BCELoss, which the reference's GAN losses call),
+and the helpers they use. Functions
 on tensors of any device; fixed-shape, mask-weighted means as in the JAX
 package.
 """
@@ -52,6 +53,15 @@ def sigmoid_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torc
     """Elementwise binary cross entropy on logits (= BCEWithLogitsLoss, no
     reduction): max(x, 0) - x t + log1p(exp(-|x|))."""
     return F.binary_cross_entropy_with_logits(logits, targets, reduction="none")
+
+
+def bce(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE on probabilities, no reduction: F.binary_cross_entropy,
+    whose log terms are clamped at -100 and whose backward denominator
+    p (1 - p) is clamped at 1e-12, the clamps the JAX package's custom VJP
+    reproduces (losses.py:33-76). CUDA autocast refuses this function, so a
+    bf16 step calls it on f32 probabilities outside autocast."""
+    return F.binary_cross_entropy(probs, targets, reduction="none")
 
 
 def mask_edge_losses(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,9 @@
                      body.conv1 and body.layer1 stop requiring a gradient, so
                      Adam skips them and no backward runs through them (XLA
                      dead-codes that backward in the JAX package).
-  GanState           BE_GAN's generator and discriminator, a TrainState each
-                     (the JAX package's steps_be_gan.GanState).
+  GanState           a GAN's generator and discriminator, a TrainState each
+                     (the JAX package's steps_be_gan.GanState): BE_GAN's and
+                     BCP's.
   GroupedTrainState  one optimizer per top-level submodule (the VAE-GAN's
                      four RMSprops), the JAX package's `grouped_transform`.
                      The reference's retained backwards accumulate into
@@ -133,8 +134,8 @@ def frozen_backbone_adam(model: nn.Module, lr: float,
 
 @dataclass
 class GanState:
-    """BE_GAN's two train states: `g` the generator's (frozen_backbone_adam),
-    `d` the discriminator's. Saved and restored whole: both models, both
+    """A GAN's two train states: `g` the generator's (BE_GAN's
+    frozen_backbone_adam, BCP's plain Adam), `d` the discriminator's. Saved and restored whole: both models, both
     optimizers and both step counts."""
 
     g: TrainState
