@@ -22,6 +22,13 @@ Phases, in order; each raises on failure and nothing is caught:
               And at BCP's point-attention shape (B 16 and 4, N 2048, Dk 32,
               Dv 260) the same, whether the model's layout is copied, the
               times at both batches and the plain backward's at B = 16.
+              And at BE_font's embedding-block shape (B 32 and 8, N 1, Dk
+              32, Dv 256), in the model's layout (channel and position
+              stride both 1) and position-major, both dtypes, against the
+              plain version and against v (a softmax over one key is 1);
+              the gradients with dq and dk exactly 0; whether _tma_operand
+              copies k and v; the kernel's, the copies', the plain
+              version's, the library call's and the plain backward's times.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -148,9 +155,33 @@ Phases, in order; each raises on failure and nothing is caught:
               the step (plus Adam's first-step slope times the gradients'
               difference), in f64 (the plain attention on both) the losses and
               both nets' gradients.
+21. be_font-infer -- BE_font (conditional kana-mask GAN) inference through
+              the port's test_be_font CLI at 64 px, batch 8, full width
+              (167.37 M parameters), seeded random weights with nonzero
+              gammas: --debug (one synthetic batch through both conditioning
+              paths, 6 launches) and --path over a synthetic kana folder (the
+              self-encoded path, no launch), each writing its grids; then a
+              warm-up and three timed batches on the label path (6 launches
+              each) and on the self-encoded path (none) apart, the forwards'
+              FLOPs and bound, a profile of each and the peak memory.
+22. be_font-train -- BE_font training through the port's train_be_font CLI
+              at 64 px, batch 32, full width, synthetic glyphs composited on
+              the host: f32 for an epoch of 3 iterations, a resume of it for
+              a second, bf16 for an epoch of 2 (54 launches an iteration),
+              test_be_font on the resumed run dir (each run dir deleted once
+              checked). Then G's and D's parameter counts, the step's FLOPs
+              and bound, and in f32 and bf16 a warm-up and three timed steps
+              with the host synthesis, the copy and the D, G and S phases
+              apart, 54 launches each, the peak memory and a profile.
+23. be_font parity -- one BE_font step at 64 px, batch 4, full width, on the
+              card and on the CPU (TF32 off), each phase from the same state
+              on both: in f32 each phase's losses and the weights its Adam
+              stepped (plus Adam's first-step slope times the gradients'
+              difference), in f64 (the plain attention on both) each phase's
+              losses and gradients, dq and dk of every block exactly 0.
 The attention kernel is on no path of phases 7-14: its launch count must
-not move there. Phases 15-16 and 18-19 are driven with the count set to 0
-before them.
+not move there. Phases 15-16, 18-19 and 21-22 are driven with the count set
+to 0 before them.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -299,6 +330,23 @@ BCP_PARITY = dict(img=128, batch=2, points=128, lr=1e-3)
 # a per-row shift): it is held to its layer's weight gradient's bound
 BCP_ZERO_GRADS = {f"grad g line_predictor.batch_attention.{i}.k.conv.0.bias":
                   f"grad g line_predictor.batch_attention.{i}.k.conv.0.weight" for i in range(3)}
+# BE_font at the JAX CLIs' defaults (train_be_font.py:37-57, test_be_font.py:29):
+# 64 px, train_be_font batch 32, test_be_font batch 8; G 64 -> 512 channels
+# with the relay FCs 8704 -> 8192 -> 8192, D's two Classifiers to 1024
+# channels. The CLI runs an epoch of FONT_ITERATIONS[dtype] iterations;
+# FONT_TIMED steps are timed after a warm-up
+FONT_IMG, FONT_INFER_BATCH, FONT_TRAIN_BATCH = 64, 8, 32
+FONT_ITERATIONS = {"float32": 3, "bfloat16": 2}
+FONT_TIMED = 3
+# attention launches: G's EmbedPair (two EmbedingBlocks of three blocks) on
+# the label path, none on the self-encoded one; D's two Classifiers' EmbedPairs
+FONT_PER_G_FORWARD, FONT_PER_D_FORWARD = 6, 12
+FONT_PER_STEP = 3 * FONT_PER_G_FORWARD + 3 * FONT_PER_D_FORWARD  # 54
+# (B, N, Dk, Dv) of the embedding blocks' attention: a (B, 256, 1, 1) map,
+# one position, q/k reduced 8x; at train_be_font's and test_be_font's batch
+FONT_SHAPES = [(FONT_TRAIN_BATCH, 1, 32, 256), (FONT_INFER_BATCH, 1, 32, 256)]
+# phase 23 on the CPU as well: 64 px, batch 4, full width; BE_PARITY_TOL's bounds
+FONT_PARITY = dict(img=64, batch=4, lr=1e-4)
 
 
 def gpu_line() -> str:
@@ -350,7 +398,9 @@ def phase_build() -> None:
 def _qkv(shape, dtype, seed, q_scale=1.0, layout="nc"):
     """Seeded q, k, v of shape (B, N, C). layout is one letter per tensor:
     'n' position-major (contiguous (B, N, C)), 'c' channel-major (the
-    transpose view of a contiguous (B, C, N)); one letter stands for all three."""
+    transpose view of a contiguous (B, C, N); at N = 1 channel and position
+    stride are both 1, as SelfAttentionBlock passes a (B, C, 1, 1) map);
+    one letter stands for all three."""
     b, n, dk, dv = shape
     layout = layout * 3 if len(layout) == 1 else layout
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -359,7 +409,10 @@ def _qkv(shape, dtype, seed, q_scale=1.0, layout="nc"):
     out = []
     for t, form in zip(((q * q_scale), k, v), layout):
         t = t.to(dtype)
-        out.append(t if form == "n" else t.transpose(1, 2).contiguous().transpose(1, 2))
+        if form == "c":  # (at N = 1 a .contiguous() would keep the (B, 1, C) strides)
+            t = torch.empty_like(t.transpose(1, 2), memory_format=torch.contiguous_format).copy_(
+                t.transpose(1, 2)).transpose(1, 2)
+        out.append(t)
     return tuple(out)
 
 
@@ -386,9 +439,12 @@ def _check_case(shape, dtype, layout, q_scale, seed) -> float:
     bad = int((err > atol + rtol * ref.float().abs()).sum())
     max_err = float(err.max())
     rel = max_err / max(float(ref.float().abs().max()), 1e-30)
+    # a softmax over one key is 1: at N = 1 the output is v
+    against_v = (f", {float((got.float() - v.float()).abs().max()):.3e} against v"
+                 if shape[1] == 1 else "")
     print(f"[kernels] flash_attention_fwd B,N,Dk,Dv={shape} {str(dtype)[6:]} layout {layout}: "
           f"max abs err {max_err:.3e}, max rel err {rel:.3e} "
-          f"(atol {atol:g}, rtol {rtol:g}), {bad} outside")
+          f"(atol {atol:g}, rtol {rtol:g}), {bad} outside{against_v}")
     if got.shape != ref.shape or bad or not torch.isfinite(got).all():
         raise AssertionError(f"flash_attention_fwd disagrees with the plain version at "
                              f"{shape} {dtype} layout {layout}")
@@ -493,8 +549,10 @@ def _grad_check(shape, layout, q_scale, seed) -> None:
     worst = max(_worst(got, ref, GRAD_TOL) for got, ref in (
         (qg.grad, qr.grad), (kg.grad, kr.grad), (vg.grad, vr.grad)))
     finite = all(bool(torch.isfinite(t.grad).all()) for t in (qg, kg, vg))
+    exact = (" (dq and dk exactly 0 on both sides: a reference of 0 bounds at 0)"
+             if shape[1] == 1 and not any(bool(t.any()) for t in (qr.grad, kr.grad)) else "")
     print(f"[kernels] backward B,N,Dk,Dv={shape} layout {layout}: dq, dk, dv at {worst:.3f} of "
-          f"the bound (atol {GRAD_TOL[0]:g} x max |ref| + rtol {GRAD_TOL[1]:g} x |ref|)")
+          f"the bound (atol {GRAD_TOL[0]:g} x max |ref| + rtol {GRAD_TOL[1]:g} x |ref|){exact}")
     if worst > 1 or not finite:
         raise AssertionError(f"the Function's gradients disagree with autograd of the plain "
                              f"version at {shape} layout {layout}")
@@ -2739,6 +2797,488 @@ def phase_bcp_parity() -> None:
                 raise AssertionError(f"the card's {label} BCP step disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# BE_font: phase 2's N = 1 kernel check and phases 21-23
+
+
+def phase_kernels_be_font(gpu: str) -> dict:
+    """Phase 2 at BE_font's embedding-block shape (B 32 and 8, N 1, Dk 32, Dv
+    256): the kernel against the plain version (and, printed, against v) in
+    the model's layout (channel and position stride both 1) and the
+    position-major one, f32 and bf16; the Function's gradients in both
+    layouts, dq and dk exactly 0; whether _tma_operand copies the model's k
+    and v; then at each batch the times of the kernel (in the model's
+    layout, copies included), the two copies alone, the plain version, the
+    library call and the plain backward. Returns the kernel line's
+    be_font_* keys (B = 32) and be_font_b8_* keys (B = 8)."""
+    from vaeplay_torch.ops import attention
+
+    out = {}
+    for i, shape in enumerate(FONT_SHAPES):
+        key = "be_font" if i == 0 else "be_font_b8"
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("n", "c"):
+                err = _check_case(shape, dtype, layout, 1.0, seed=500 + i)
+                if dtype == torch.float32 and layout == "c":
+                    out[f"{key}_max_abs_err"] = err
+        for layout in ("c", "n"):
+            _grad_check(shape, layout, 1.0, seed=510 + i)
+        b, n, dk, dv = shape
+        q, k, v = _qkv(shape, torch.float32, seed=0, layout="c")
+        res = torch.empty(b, dv, n, device="cuda").transpose(1, 2)
+        copied = not (attention._tma_operand(k) is k and attention._tma_operand(v) is v)
+        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, out=res), iters=200)
+        copy_ms = cuda_ms(lambda: (attention._tma_operand(k), attention._tma_operand(v)),
+                          iters=200)
+        plain_ms = cuda_ms(lambda: attention.reference_attention(q, k, v), iters=200)
+        # the library call on the same values, position-major: its kernels
+        # refuse the model's strides (channel and position stride both 1)
+        q4, k4, v4 = (t[:, None] for t in _qkv(shape, torch.float32, seed=0, layout="n"))
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), iters=200)
+        g = _qkv(shape, torch.float32, seed=1000, layout="c")[2]
+        bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=200)
+        bound_ms, bound_by, flops = _forward_bound(shape)
+        print(f"[kernels] BE_font shape B,N,Dk,Dv={shape} f32, the model's layout, on {gpu}: "
+              f"kernel_ms {ms:.5f} (k and v {'COPIED' if copied else 'read with no copy'} by "
+              f"_tma_operand: the two copies alone {copy_ms:.5f} ms, {copy_ms / ms:.1%}), "
+              f"plain_ms {plain_ms:.5f}, library_ms {library_ms:.5f}, attention_backward_ms "
+              f"{bwd_ms:.5f}, bound_ms {bound_ms:.7f} ({bound_by}: "
+              f"{4 * b * n * (2 * dk + 2 * dv) / 1e3:.1f} kB at "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {TF32_PASSES} x {flops / 1e3:.1f} kFLOP), "
+              f"{bound_ms / ms:.2%} of its bound")
+        out.update({f"{key}_shape": list(shape), f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                    f"{key}_bound_ms": bound_ms, f"{key}_bound_by": bound_by,
+                    f"{key}_library_ms": library_ms, f"{key}_copy_ms": copy_ms,
+                    f"{key}_copied": copied, f"{key}_backward_ms": bwd_ms})
+    out["be_font_launches"] = None
+    return out
+
+
+def random_font_model(seed: int = 0, img: int = FONT_IMG):
+    """A seeded BE_font ComposeNet, every attention gamma drawn (_draw_gammas)."""
+    from vaeplay_torch.models.be_font import ComposeNet
+
+    model = ComposeNet(img, generator=torch.Generator().manual_seed(seed))
+    _draw_gammas(model, torch.Generator().manual_seed(seed + 1))
+    return model
+
+
+def font_flops(img: int) -> dict:
+    """Multiply-adds x 2 of one image through each part of BE_font,
+    {part: (forward, backward)}, from the layer shapes: every Conv2d and
+    Linear of G and D, counted by hooks on a batch of 2 on the meta device
+    (the attention's products at N = 1 are 2 (32 + 256) per block: left
+    out). "g_label" and "g_self" are test_be_font's two forwards; the step
+    is "d_phase" (G under no_grad, D on the real and the fake maps with its
+    weight gradients), "g_phase" (G with its gradients, D frozen on the fake
+    maps) and "s_phase" (G under no_grad with labels, then self-encoded with
+    only the style encoder's weight gradients); "relay_fcs_in_step" is the
+    part of the three phases that G's two relay FCs take. A layer's backward costs its
+    forward once for the weight gradient, if it is taken, and once for the
+    input gradient, if its input needs one."""
+    from vaeplay_torch.models.be_font import ComposeNet, Discriminator
+
+    with torch.device("meta"):
+        g = ComposeNet(img).train()
+        d = Discriminator(img).train()
+    out = {k: [0, 0] for k in ("g_label", "g_self", "d_phase", "g_phase", "s_phase",
+                               "relay_fcs_in_step")}
+    part, relay = ["g_label"], set(g.relay_convs.modules())
+
+    def hook(m, inputs, y):
+        x = inputs[0]
+        if isinstance(m, torch.nn.Conv2d):
+            f = 2 * y.numel() // y.shape[0] * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+        else:
+            f = 2 * y.numel() // y.shape[0] * m.in_features
+        bwd = 0
+        if torch.is_grad_enabled():
+            bwd = f * (int(m.weight.requires_grad) + int(x.requires_grad))
+        out[part[0]][0] += f
+        out[part[0]][1] += bwd
+        if m in relay and part[0].endswith("_phase"):
+            out["relay_fcs_in_step"][0] += f
+            out["relay_fcs_in_step"][1] += bwd
+
+    for m in list(g.modules()) + list(d.modules()):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            m.register_forward_hook(hook)
+    x = torch.zeros(2, 3, img, img, device="meta")
+    y = {"cls": torch.zeros(2, 143, device="meta"), "cnt_style": torch.zeros(2, 5, device="meta")}
+    maps = torch.zeros(2, 2, img, img, device="meta")
+    with plain_attention():  # the kernel takes no meta tensor
+        with torch.no_grad():
+            g(x, y)
+            part[0] = "g_self"
+            g(x)
+            part[0] = "d_phase"
+            fake = g(x, y)
+        d(maps, y)
+        d(torch.cat([fake["masks"], fake["edges"]], 1), y)
+        part[0] = "g_phase"
+        fake = g(x, y)
+        d.requires_grad_(False)
+        d(torch.cat([fake["masks"], fake["edges"]], 1), y)
+        part[0] = "s_phase"
+        with torch.no_grad():
+            g(x, y)
+        for name, p in g.named_parameters():
+            p.requires_grad_(name.startswith("style_encoder."))
+        g(x)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def write_kana_folder(root: str, n: int) -> str:
+    """n synthetic glyph images (SyntheticGlyphDataset.glyph) as a kana
+    folder for test_be_font --path."""
+    import numpy as np
+
+    from vaeplay_torch.data.font_data import SyntheticGlyphDataset
+
+    os.makedirs(root, exist_ok=True)
+    ds, rng = SyntheticGlyphDataset(), np.random.default_rng(9)
+    for i in range(n):
+        ds.glyph(rng)[0].save(os.path.join(root, f"kana_{i:02d}.png"))
+    return root
+
+
+def _check_font_preds(preds, batch: int) -> None:
+    for name in ("masks", "edges"):
+        t = preds[name]
+        if (tuple(t.shape) != (batch, 1, FONT_IMG, FONT_IMG) or not bool(torch.isfinite(t).all())
+                or float(t.min()) < 0 or float(t.max()) > 1):
+            raise AssertionError(f"{name}: shape {tuple(t.shape)}, or not finite probabilities")
+
+
+def phase_be_font_infer(tmp: str, gpu: str) -> None:
+    """BE_font inference through the test_be_font CLI on cuda:0 at 64 px,
+    batch 8, full width, seeded random weights with nonzero gammas: --debug
+    (one synthetic batch through both conditioning paths: 6 launches) and
+    --path over a synthetic kana folder (the self-encoded path: none); then
+    a warm-up and timed batches with the label path and the self-encoded
+    path apart (host clock around the copy, forward, sigmoid and
+    synchronize), 6 and 0 launches each, the peak memory, the forwards'
+    FLOPs and bound, and a profile of each path."""
+    from vaeplay_torch.cli import test_be_font
+    from vaeplay_torch.data.font_data import SyntheticGlyphDataset
+    from vaeplay_torch.ops import attention
+
+    dev = torch.device("cuda", 0)
+    weights = os.path.join(tmp, "font_random.pt")
+    torch.save(random_font_model(0).state_dict(), weights)
+    kana = write_kana_folder(os.path.join(tmp, "kana"), FONT_INFER_BATCH + 2)
+    for label, extra, grids, want in (
+            ("--debug", ["--debug"], ["font.png"], FONT_PER_G_FORWARD),
+            ("--path", ["--path", kana], ["test_0.png", "test_1.png"], 0)):
+        before = attention.flash_attention.launches
+        t0 = time.perf_counter()
+        written = test_be_font.main(["--model_path", weights, "--gpu", "0", "--img_size",
+                                     str(FONT_IMG), "--batchsize", str(FONT_INFER_BATCH),
+                                     "--res_output", os.path.join(tmp, f"font_test{len(grids)}"),
+                                     *extra])
+        launches = attention.flash_attention.launches - before
+        print(f"[be_font-infer] CLI run {label} (load, {len(grids)} grid(s), batch "
+              f"{FONT_INFER_BATCH} at {FONT_IMG} px) {time.perf_counter() - t0:.2f} s, "
+              f"{launches} kernel launches; wrote {written}")
+        if ([os.path.basename(p) for p in written] != grids or launches != want
+                or not all(os.path.getsize(p) > 0 for p in written)):
+            raise AssertionError(f"test_be_font {label} wrote {written} with {launches} launches")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = test_be_font.load_model(weights, FONT_IMG, dev)
+    ds = SyntheticGlyphDataset(data_size=(FONT_TIMED + 1) * FONT_INFER_BATCH, seed=5)
+    batches = list(ds.batches(FONT_INFER_BATCH, FONT_IMG))
+    flops = font_flops(FONT_IMG)
+    for path, want in (("label", FONT_PER_G_FORWARD), ("self-encoded", 0)):
+        times = []
+        for i, b in enumerate(batches):
+            cond = (b["labels"], b["styles"]) if path == "label" else ()
+            before = attention.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = test_be_font.predict(model, b["imgs"], dev, *cond)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            _check_font_preds(preds, FONT_INFER_BATCH)
+            if attention.flash_attention.launches - before != want:
+                raise AssertionError(f"a {path} forward launched the kernel "
+                                     f"{attention.flash_attention.launches - before} times")
+            if i:
+                times.append(ms)
+            print(f"[be_font-infer] {path} path batch {i}{' (warm-up)' if i == 0 else ''}: "
+                  f"{ms:.3f} ms (PyTorch defaults; batch {FONT_INFER_BATCH}, {FONT_IMG} px, host "
+                  f"clock: copy, forward, sigmoid) on {gpu}")
+        fwd = flops["g_label" if path == "label" else "g_self"][0] * FONT_INFER_BATCH
+        median = sorted(times)[len(times) // 2]
+        print(f"[be_font-infer] {path} path: median batch {median:.3f} ms, "
+              f"{FONT_INFER_BATCH / median * 1e3:.1f} images/s; forward {fwd / 1e9:.2f} GFLOP a "
+              f"batch, bound {fwd / PEAK_TF32_FLOPS * 1e3:.4f} ms at "
+              f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, {fwd / PEAK_TF32_FLOPS * 1e3 / median:.2%} "
+              f"of it; {want} kernel launches a batch on {gpu}")
+        b = batches[1]
+        cond = (b["labels"], b["styles"]) if path == "label" else ()
+        _profile(lambda: test_be_font.predict(model, b["imgs"], dev, *cond),
+                 f"be_font-infer {path}", runs=3)
+    print(f"[be_font-infer] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: weights and activations)")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _check_font_run(run: str, epoch: int, label: str) -> None:
+    """A train_be_font run dir of one epoch: its checkpoint and one log line
+    of the eight averaged losses, finite."""
+    from vaeplay_torch.train.steps_be_font import AVG_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in AVG_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[be_font-train] {label} epoch {epoch}: " + " ".join(f"{k}={r[k]:.4f}" for k in AVG_KEYS)
+          + f" ({r['images_per_sec']:.1f} img/s over the epoch, CLI's host clock, host synthesis "
+          f"included); checkpoint {os.path.getsize(os.path.join(run, f'{epoch}.ckpt')) / 2**30:.2f} "
+          f"GiB")
+
+
+def _font_cli(tmp: str, name: str, dtype: str, *extra) -> str:
+    """train_be_font at 64 px, batch 32, in `dtype`; every iteration must
+    launch the kernel FONT_PER_STEP times."""
+    from vaeplay_torch.cli import train_be_font
+    from vaeplay_torch.ops import attention
+
+    n = FONT_ITERATIONS[dtype]
+    before = attention.flash_attention.launches
+    t0 = time.perf_counter()
+    run = train_be_font.main(["--gpu", "0", "--img_size", str(FONT_IMG), "--batchsize",
+                              str(FONT_TRAIN_BATCH), "--iterations", str(n), "--viz_freq", str(n),
+                              "--dtype", dtype, "--res_output", os.path.join(tmp, "font_results"),
+                              "--model_output", os.path.join(tmp, name), *extra])
+    launches = attention.flash_attention.launches - before
+    print(f"[be_font-train] CLI run {dtype} {' '.join(extra)} (init, {n} iterations, checkpoint) "
+          f"{time.perf_counter() - t0:.2f} s, {launches} kernel launches: {run}")
+    if launches != FONT_PER_STEP * n:
+        raise AssertionError(f"train_be_font {dtype} launched the kernel {launches} times in "
+                             f"{n} iterations")
+    return run
+
+
+def _font_timed(dtype: str, gpu: str) -> tuple:
+    """A warm-up and FONT_TIMED steps of make_be_font_train_step in `dtype`
+    at PyTorch's defaults: the host's synthesis of the batch, its copy, and
+    the D, G and S phases timed apart on the host clock (each ending in a
+    synchronize), FONT_PER_STEP launches a step; the peak device memory.
+    Returns (step, state, a batch on the card) for a profile, and the median
+    (synthesis, copy, D, G, S, device step) ms."""
+    from vaeplay_torch.cli.train_be_font import build_state, device_batch
+    from vaeplay_torch.data.font_data import SyntheticGlyphDataset
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.steps_be_font import make_be_font_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fs = build_state(FONT_IMG, 1e-4, 0, dev)
+    fs.g.model.train()
+    fs.d.model.train()
+    step = make_be_font_train_step(fs.g.model, fs.d.model, resolve_dtype(dtype))
+    host = SyntheticGlyphDataset(data_size=(FONT_TIMED + 1) * FONT_TRAIN_BATCH).batches(
+        FONT_TRAIN_BATCH, FONT_IMG)
+    times = []
+    for i in range(FONT_TIMED + 1):
+        before = attention.flash_attention.launches
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        b = next(host)
+        t.append(time.perf_counter())
+        batch = device_batch(b, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        metrics = {}
+        for phase in (step.d_phase, step.g_phase, step.s_phase):
+            fs, m = phase(fs, *batch)
+            metrics.update(m)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite losses: {metrics}")
+        if attention.flash_attention.launches - before != FONT_PER_STEP:
+            raise AssertionError(f"a {dtype} BE_font step launched the kernel "
+                                 f"{attention.flash_attention.launches - before} times")
+        ms = tuple((t[j + 1] - t[j]) * 1e3 for j in range(5)) + ((t[5] - t[2]) * 1e3,)
+        if i:
+            times.append(ms)
+        print(f"[be_font-train] {dtype} step {i}{' (warm-up)' if i == 0 else ''}: host synthesis "
+              f"{ms[0]:.2f} ms, copy {ms[1]:.2f} ms, D phase {ms[2]:.2f} ms, G phase "
+              f"{ms[3]:.2f} ms, S phase {ms[4]:.2f} ms, device step {ms[5]:.2f} ms, "
+              f"{FONT_TRAIN_BATCH / ms[5] * 1e3:.1f} images/s (PyTorch defaults; batch "
+              f"{FONT_TRAIN_BATCH}, {FONT_IMG} px, host clock) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[be_font-train] {dtype} peak device memory {peak:.2f} GiB (torch.cuda."
+          f"max_memory_allocated: both nets' weights, gradients, three Adams' moments, "
+          f"activations)")
+    medians = tuple(sorted(t[j] for t in times)[len(times) // 2] for j in range(6))
+    return (step, fs, batch), medians
+
+
+def phase_be_font_train(tmp: str, gpu: str) -> dict:
+    """BE_font through the train_be_font CLI at 64 px, batch 32, full width:
+    f32 for an epoch of 3 iterations, a resume for a second, bf16 for an
+    epoch of 2 (FONT_PER_STEP launches an iteration), test_be_font on the
+    resumed run dir (each run dir deleted once checked); then G's and D's
+    parameter counts, the step's FLOPs and bound, and in f32 and bf16 timed
+    steps with the host synthesis, the copy and the three phases apart, the
+    peak memory and a profile of a step. Returns the median device step ms
+    by dtype."""
+    from vaeplay_torch.cli import test_be_font
+    from vaeplay_torch.models.be_font import ComposeNet, Discriminator
+    from vaeplay_torch.ops import attention
+
+    run = _font_cli(tmp, "font_a", "float32", "--epoch", "1")
+    _check_font_run(run, 0, "float32")
+    resumed = _font_cli(tmp, "font_b", "float32", "--epoch", "2", "--resume", run)
+    _check_font_run(resumed, 1, "float32")
+    shutil.rmtree(os.path.join(tmp, "font_a"))
+    _check_font_run(_font_cli(tmp, "font_c", "bfloat16", "--epoch", "1"), 0, "bfloat16")
+    shutil.rmtree(os.path.join(tmp, "font_c"))
+    before = attention.flash_attention.launches
+    written = test_be_font.main(["--model_path", resumed, "--gpu", "0", "--img_size",
+                                 str(FONT_IMG), "--batchsize", str(FONT_INFER_BATCH),
+                                 "--res_output", os.path.join(tmp, "font_trained")])
+    if (len(written) != 1 or not os.path.getsize(written[0])
+            or attention.flash_attention.launches - before != FONT_PER_G_FORWARD):
+        raise AssertionError(f"test_be_font on the trained run dir wrote {written}")
+    print(f"[be_font-train] test_be_font --model_path <run dir> wrote {written}")
+    shutil.rmtree(os.path.join(tmp, "font_b"))
+
+    with torch.device("meta"):
+        g, d = ComposeNet(FONT_IMG), Discriminator(FONT_IMG)
+        counts = {"G": sum(p.numel() for p in g.parameters()),
+                  "G's relay FCs": sum(p.numel() for p in g.relay_convs.parameters()),
+                  "G's style encoder": sum(p.numel() for p in g.style_encoder.parameters()),
+                  "D": sum(p.numel() for p in d.parameters())}
+    print("[be_font-train] parameters: " + ", ".join(f"{k} {v / 1e6:.2f} M"
+                                                     for k, v in counts.items()))
+    if (round(counts["G"] / 1e4), round(counts["D"] / 1e4)) != (16737, 3762):
+        raise AssertionError(f"parameter counts {counts}, not G 167.37 M and D 37.62 M")
+    flops = font_flops(FONT_IMG)
+    step_flops = sum(sum(flops[k]) for k in ("d_phase", "g_phase", "s_phase")) * FONT_TRAIN_BATCH
+    relay = sum(flops["relay_fcs_in_step"]) * FONT_TRAIN_BATCH
+    print(f"[be_font-train] GFLOP per image from the layer shapes (forward, backward): "
+          + "; ".join(f"{k} {v[0] / 1e9:.3f}, {v[1] / 1e9:.3f}" for k, v in flops.items())
+          + f"; step ({FONT_TRAIN_BATCH} images) {step_flops / 1e12:.3f} TFLOP, "
+          f"{step_flops / (flops['g_label'][0] * FONT_TRAIN_BATCH):.2f} G-forward equivalents; "
+          f"bound {step_flops / PEAK_TF32_FLOPS * 1e3:.3f} ms at {PEAK_TF32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s TF32, {step_flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 (dense tensor-core rates, 700 W); the relay "
+          f"FCs' share, forward and both backward products, about {relay / step_flops:.1%}")
+    medians = {}
+    for dtype, peak, rate in (("float32", PEAK_TF32_FLOPS, "TF32"),
+                              ("bfloat16", PEAK_BF16_FLOPS, "bf16")):
+        profiled = None  # the previous state is freed before this peak is taken
+        profiled, ms = _font_timed(dtype, gpu)
+        medians[dtype] = ms[5]
+        print(f"[be_font-train] {dtype} median: host synthesis {ms[0]:.2f} ms, copy {ms[1]:.2f} "
+              f"ms, D phase {ms[2]:.2f} ms, G phase {ms[3]:.2f} ms, S phase {ms[4]:.2f} ms, "
+              f"device step {ms[5]:.2f} ms ({FONT_TRAIN_BATCH / ms[5] * 1e3:.1f} images/s, "
+              f"{step_flops / ms[5] / 1e9:.1f} TFLOP/s, {step_flops / peak * 1e3 / ms[5]:.1%} of "
+              f"the {rate} bound); host synthesis / device step {ms[0] / ms[5]:.2f} on {gpu}")
+        step, fs, batch = profiled
+        _profile(lambda: step(fs, *batch), f"be_font-train {dtype}", runs=1)
+        del step, fs, batch
+    del profiled
+    torch.cuda.empty_cache()
+    return medians
+
+
+def phase_be_font_parity() -> None:
+    """One BE_font step at 64 px, batch 4, full width, gammas drawn, on the
+    card and on the CPU from the same weights and noise batch (TF32 off),
+    phase by phase: before each phase the card's FontState is loaded from
+    the CPU's, so each phase starts from the same state on both. f32 (the
+    kernel on the card: 30, 18 and 6 launches): each phase's losses, and
+    the weights its optimizer stepped, within the bound plus Adam's slope
+    lr / eps times the gradients' difference. f64 (the plain attention on
+    both, the kernel taking no f64; no launch): each phase's losses and
+    gradients."""
+    import numpy as np
+
+    from vaeplay_torch.models.be_font import Discriminator
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.state import FontState
+    from vaeplay_torch.train.steps_be_font import make_be_font_train_step
+
+    cfg = FONT_PARITY
+    b, img, lr = cfg["batch"], cfg["img"], cfg["lr"]
+    rng = np.random.default_rng(13)
+    arrays = (rng.uniform(size=(b, 3, img, img)), rng.uniform(size=(b, 1, img, img)),
+              rng.uniform(size=(b, 1, img, img)), rng.integers(0, 143, b),
+              rng.normal(size=(b, 5)))
+    g_base = random_font_model(11, img)
+    d_base = Discriminator(img, generator=torch.Generator().manual_seed(12))
+    _draw_gammas(d_base, torch.Generator().manual_seed(13))
+    for dtype in (torch.float32, torch.float64):
+        states, steps, batches = {}, {}, {}
+        for key, dev in (("cpu", torch.device("cpu")), ("cuda", torch.device("cuda", 0))):
+            fs = FontState.create(copy.deepcopy(g_base).to(dev, dtype).train(),
+                                  copy.deepcopy(d_base).to(dev, dtype).train(), lr)
+            states[key], steps[key] = fs, make_be_font_train_step(fs.g.model, fs.d.model)
+            batches[key] = tuple(torch.as_tensor(a).to(dev, dtype) if a.dtype != np.int64
+                                 else torch.as_tensor(a).to(dev) for a in arrays)
+        tol = BE_PARITY_TOL[dtype]
+        for phase, launches, stepped in (("d_phase", 30, "d"), ("g_phase", 18, "g"),
+                                         ("s_phase", 6, "style")):
+            states["cuda"].load_state_dict(states["cpu"].state_dict())
+            results = {}
+            for dev in ("cpu", "cuda"):
+                before = attention.flash_attention.launches
+                with plain_attention() if dtype == torch.float64 else contextlib.nullcontext():
+                    states[dev], m = getattr(steps[dev], phase)(states[dev], *batches[dev])
+                launched = attention.flash_attention.launches - before
+                want = launches if dev == "cuda" and dtype == torch.float32 else 0
+                if launched != want:
+                    raise AssertionError(f"{phase} {dtype} on {dev} launched the kernel "
+                                         f"{launched} times, not {want}")
+                model = getattr(states[dev], stepped).model
+                results[dev] = ({k: v.cpu() for k, v in m.items()},
+                                {f"{kind} {k}": (p.grad if kind == "grad" else p).detach().cpu()
+                                 for k, p in model.named_parameters() for kind in ("grad", "weight")
+                                 if p.grad is not None})
+            (ref_m, ref_t), (got_m, got_t) = results["cpu"], results["cuda"]
+            worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in ref_m)
+            held = {}
+            for k in ref_t:
+                if dtype == torch.float64 and k.startswith("grad"):
+                    scale = float(ref_t[k].abs().max())
+                    if scale == 0:  # an attention block's q and k: exactly 0 on both
+                        held[k] = 0.0 if not got_t[k].any() else math.inf
+                    else:
+                        held[k] = _worst(got_t[k], ref_t[k], tol, scale)
+                elif dtype == torch.float32 and k.startswith("weight"):
+                    gk = "grad" + k[len("weight"):]
+                    slack = 1.001 * lr / 1e-8 * (got_t[gk] - ref_t[gk]).abs()
+                    bound = tol[0] * float(ref_t[k].abs().max()) + tol[1] * ref_t[k].abs() + slack
+                    held[k] = float(((got_t[k] - ref_t[k]).abs() / bound.clamp(min=1e-30)).max())
+            worst, name = max((v, k) for k, v in held.items())
+            print(f"[be_font parity] {str(dtype)[6:]} {phase} losses card vs CPU: " + " ".join(
+                f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in ref_m))
+            print(f"[be_font parity] {str(dtype)[6:]} {phase}: worst loss at {worst_loss:.2e} of "
+                  f"its bound ({loss}), worst of {len(held)} "
+                  f"{'gradients' if dtype == torch.float64 else 'weights'} of {stepped} at "
+                  f"{worst:.2e} ({name}); bound atol {tol[0]:g} x max |ref| + rtol {tol[1]:g} x "
+                  f"|ref|{'' if dtype == torch.float64 else ' + lr / eps x |grad difference|'}")
+            if worst_loss > 1 or worst > 1 or not all(
+                    bool(torch.isfinite(t).all()) for t in list(got_t.values())
+                    + list(got_m.values())):
+                raise AssertionError(f"the card's {dtype} BE_font {phase} disagrees with the CPU's")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -2774,6 +3314,7 @@ def main(argv) -> int:
         phase_kernel_backward(gpu)
         kernel.update(phase_kernels_bc(gpu))
         kernel.update(phase_kernels_bcp(gpu))
+        kernel.update(phase_kernels_be_font(gpu))
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
         random_weights(weights)
@@ -2799,6 +3340,11 @@ def main(argv) -> int:
         phase_bcp_train(tmp, gpu)
         kernel["bcp_launches"] = attention.flash_attention.launches
         kernel["launches"] += kernel["bcp_launches"]
+        attention.flash_attention.launches = 0
+        phase_be_font_infer(tmp, gpu)
+        phase_be_font_train(tmp, gpu)
+        kernel["be_font_launches"] = attention.flash_attention.launches
+        kernel["launches"] += kernel["be_font_launches"]
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
@@ -2809,6 +3355,7 @@ def main(argv) -> int:
             raise AssertionError("a BE or BE_GAN parity step launched the attention kernel")
         phase_bc_parity()
         phase_bcp_parity()
+        phase_be_font_parity()
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,10 +13,12 @@ from vaeplay_torch.ops import attention
 from vaeplay_tpu.ops.attention import (_pallas_attention, _pallas_attention_bwd,
                                        _reference_attention)
 
-# tests/test_attention.py's shapes, plus BP's attention at a short N and
-# BCP's point attention (Dk 32, Dv 260, not a multiple of 8) at a short N
+# tests/test_attention.py's shapes, plus BP's attention at a short N,
+# BCP's point attention (Dk 32, Dv 260, not a multiple of 8) at a short N,
+# and BE_font's embedding blocks (one position: the output is v, and dq and
+# dk are exactly 0, since a softmax over one key is constant)
 SHAPES = [(2, 64, 4, 32), (2, 100, 8, 16), (2, 256, 16, 128), (2, 333, 5, 7),
-          (2, 64, 90, 720), (2, 128, 32, 260)]
+          (2, 64, 90, 720), (2, 128, 32, 260), (2, 1, 32, 256)]
 # position-major: a contiguous (B, N, C); channel-major: the (B, N, C)
 # transpose view of a contiguous (B, C, N), as SelfAttentionBlock passes them
 LAYOUTS = ["position_major", "channel_major"]
@@ -42,7 +44,7 @@ def _in_layout(a: np.ndarray, layout: str) -> torch.Tensor:
 def test_plain_attention_matches_jax(b, n, dk, dv, against, tol, layout):
     qn, kn, vn = _qkv(b, n, dk, dv)
     q, k, v = (_in_layout(a, layout) for a in (qn, kn, vn))
-    assert (q.stride(2) if layout == "position_major" else q.stride(1)) == 1
+    assert n == 1 or (q.stride(2) if layout == "position_major" else q.stride(1)) == 1
     launches = attention.flash_attention.launches
     got = attention.spatial_self_attention(q, k, v)
     assert attention.flash_attention.launches == launches  # CPU: plain version
@@ -53,6 +55,8 @@ def test_plain_attention_matches_jax(b, n, dk, dv, against, tol, layout):
         ref = _pallas_attention(q, k, v, interpret=True, full_precision=True)
     assert got.shape == (b, n, dv) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol, rtol=tol)
+    if n == 1:
+        assert torch.equal(got, torch.from_numpy(vn))
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
@@ -80,6 +84,7 @@ def test_wrapper_rejects_other_layouts():
     (16, "position_major", torch.float32, True),
     (333, "channel_major", torch.float32, True),  # rows of 333 f32 are not 16-byte multiples
     (16, "channel_major", torch.bfloat16, True),  # widened to f32
+    (1, "channel_major", torch.float32, True),  # N = 1: channel stride 1, rows of 4 bytes
 ])
 def test_kernel_operand_layout(n, layout, dtype, copied):
     """flash_attention hands the kernel k and v f32, channel-major, with
@@ -170,9 +175,14 @@ def test_attention_backward_matches_jax(b, n, dk, dv, layout):
     for x, like in zip(got, (qn, kn, vn)):
         assert x.shape == like.shape and x.dtype == torch.float32
         # a channel-major input gets a channel-major gradient, which the
-        # convolution behind it takes with no copy
-        assert (x.stride(1) == 1) is (layout == "channel_major" or like.shape[2] == 1)
+        # convolution behind it takes with no copy (at N = 1 the two
+        # layouts are one)
+        if n > 1:
+            assert (x.stride(1) == 1) is (layout == "channel_major" or like.shape[2] == 1)
     _assert_grads_close(got, ref, 1e-5)
+    if n == 1:
+        assert not got[0].any() and not got[1].any()
+        assert not np.asarray(ref[0]).any() and not np.asarray(ref[1]).any()
 
 
 def test_spatial_attention_gradcheck():

@@ -1,9 +1,10 @@
 """JAX (flax) parameters -> the port's state_dict.
 
 The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN, BE,
-BE_GAN, BC and BCP mappings (`bp_from_torch`, `vaegan_from_torch`,
+BE_GAN, BC, BCP and BE_font mappings (`bp_from_torch`, `vaegan_from_torch`,
 `be_from_torch`, `be_gan_from_torch`, `be_gan_disc_from_torch`,
-`bc_from_torch`, `bcp_from_torch`, `bcp_disc_from_torch`, and for the backbone
+`bc_from_torch`, `bcp_from_torch`, `bcp_disc_from_torch`,
+`be_font_from_torch`, `be_font_disc_from_torch`, and for the backbone
 vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
 for trees given as nested mappings of numpy arrays (for example
 `jax.device_get(variables["params"])`). It imports neither JAX nor the JAX
@@ -14,9 +15,12 @@ Layout conversions:
   conv-transpose  HWIO -> (I, O, kh, kw)
   linear          (in, out) -> (out, in)
   a linear over a flattened conv map (BP's ellipse_predictor.fcs.0, the
-          VAE-GAN's encoder.fc.0 and discriminator.fc.0): the JAX model
+          VAE-GAN's encoder.fc.0 and discriminator.fc.0, BE_font's
+          relay_convs.0 and each Classifier's cls_convs.0): the JAX model
           flattens NHWC (h, w, c), the port NCHW (c, h, w); the input axis
           is permuted back
+  a linear whose output is reshaped into a map (BE_font's relay_convs.1):
+          its output axis and bias, the same way
   BatchNorm       scale, bias, mean, var -> weight, bias, running_mean,
                   running_var
   FrozenBatchNorm the `constants` scale, bias, mean, var -> the same four
@@ -30,6 +34,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from vaeplay_torch.models.be_font import LABEL_EMBED, STYLE_EMBED
 
 
 def _t(a) -> torch.Tensor:
@@ -375,4 +381,92 @@ def bcp_disc_state_dict_from_jax(params: Mapping, image_size: int) -> Dict[str, 
     _linblock(sd, f"local_convs.{2 * level}", params["l_out"])
     for i in range(5):
         _linblock(sd, f"merge_convs.{i}", params[f"m{i}"])
+    return sd
+
+
+def _embeding_block(sd: Dict, prefix: str, p: Mapping) -> None:
+    """A JAX EmbedingBlock: fc0, fc1 -> convs_first.{0,1}, attn{i} ->
+    attention.{i}, e0, e1 -> embeding.{0,1}."""
+    for i in range(2):
+        _linblock(sd, f"{prefix}.convs_first.{i}", p[f"fc{i}"])
+        _linblock(sd, f"{prefix}.embeding.{i}", p[f"e{i}"])
+    for i in range(3):
+        _attnblock(sd, f"{prefix}.attention.{i}", p[f"attn{i}"])
+
+
+def _embed_pair(sd: Dict, prefix: str, p: Mapping) -> None:
+    _embeding_block(sd, f"{prefix}.label_encode_block", p["label"])
+    _embeding_block(sd, f"{prefix}.style_encode_block", p["style"])
+
+
+def _flat_map_linear(sd: Dict, prefix: str, p: Mapping, c: int) -> None:
+    """A DenseBlock over [an NHWC-flattened c-channel square map, the two
+    embeddings]: the map's input rows permuted to NCHW order, the rest as
+    they are."""
+    kernel = np.asarray(p["fc"]["kernel"])
+    flat = kernel.shape[0] - LABEL_EMBED - STYLE_EMBED
+    side = math.isqrt(flat // c)
+    sd[f"{prefix}.fc.0.weight"] = _t(np.concatenate(
+        [_lin_to_nchw_flat(kernel[:flat], c, side, side), _lin(kernel[flat:])], axis=1))
+    sd[f"{prefix}.fc.0.bias"] = _t(p["fc"]["bias"])
+
+
+def be_font_state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/be_font.ComposeNet params and batch_stats -> state_dict of
+    the port's ComposeNet; the inverse of torch_convert.be_font_from_torch.
+    The widths come from the arrays, so slim models (min_channel,
+    max_channel) convert too. relay0's map rows and relay1's output columns
+    and bias cross the NHWC/NCHW boundary; relay0's output and relay1's
+    input are a latent with no layout and are not permuted."""
+    sd: Dict[str, torch.Tensor] = {}
+    _convblock(sd, "down.0", params["down0"])
+    n = sum(1 for k in params if k.startswith("ups_"))
+    for i in range(n):
+        _bn_convblock(sd, f"down.{i + 1}.0", params[f"down_blocks_{i}_0"],
+                      batch_stats[f"down_blocks_{i}_0"])
+        _convblock(sd, f"down.{i + 1}.1", params[f"down_blocks_{i}_1"])
+        for j, name in ((0, "conv1"), (1, "conv2")):
+            _bn_convblock(sd, f"up.{i}.conv.{j}", params[f"ups_{i}"][name],
+                          batch_stats[f"ups_{i}"][name])
+        _convblock(sd, f"skip.{i}", params[f"skips_{i}"])
+        _convblock(sd, f"cat.{i}", params[f"cats_{i}"])
+    _embed_pair(sd, "embeding_block", params["embeding_block"])
+    for half in ("label", "style"):
+        blk = params["style_encoder"][half]
+        convs = [blk["c0"]] + [blk[f"c{i}"] for i in range(1, len(blk) - 1)] + [blk["c_out"]]
+        for i, p in enumerate(convs):
+            _convblock(sd, f"style_encoder.{half}_encode_block.convs.{i}", p)
+    c = np.asarray(params[f"down_blocks_{n - 1}_1"]["conv"]["kernel"]).shape[3]
+    _flat_map_linear(sd, "relay_convs.0", params["relay0"], c)
+    w1 = _lin(params["relay1"]["fc"]["kernel"])  # (out in (h, w, c) order, in)
+    relay_in = w1.shape[0]
+    sd["relay_convs.1.fc.0.weight"] = _t(
+        w1.reshape(4, 4, c, relay_in).transpose(2, 0, 1, 3).reshape(relay_in, relay_in))
+    sd["relay_convs.1.fc.0.bias"] = _t(
+        np.asarray(params["relay1"]["fc"]["bias"]).reshape(4, 4, c).transpose(2, 0, 1).reshape(-1))
+    for head in ("mask_net", "edge_net"):
+        for i in range(3):
+            _convblock(sd, f"{head}.predictor.{i}", params[head][f"p{i}"])
+    return sd
+
+
+def be_font_disc_state_dict_from_jax(params: Mapping,
+                                     batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/be_font.Discriminator params and batch_stats -> state_dict
+    of the port's Discriminator; the inverse of
+    torch_convert.be_font_disc_from_torch. Each Classifier's fc0 reads the
+    flattened 1024-channel map first: those rows are permuted to NCHW."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("adv_convs", "aux_convs"):
+        p, s = params[name], batch_stats[name]
+        _convblock(sd, f"{name}.conv_first", p["c0"])
+        for i in range(4):
+            if "norm" in p[f"c{i + 1}"]:
+                _bn_convblock(sd, f"{name}.backbone.{i}", p[f"c{i + 1}"], s[f"c{i + 1}"])
+            else:
+                _convblock(sd, f"{name}.backbone.{i}", p[f"c{i + 1}"])
+        _embed_pair(sd, f"{name}.embeding_block", p["embed"])
+        _flat_map_linear(sd, f"{name}.cls_convs.0", p["fc0"], 1024)
+        for i in (1, 2):
+            _linblock(sd, f"{name}.cls_convs.{i}", p[f"fc{i}"])
     return sd

@@ -15,9 +15,9 @@ from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
-from vaeplay_torch.train.state import GanState, GroupedTrainState, TrainState
+from vaeplay_torch.train.state import FontState, GanState, GroupedTrainState, TrainState
 
-State = Union[TrainState, GroupedTrainState, GanState]
+State = Union[TrainState, GroupedTrainState, GanState, FontState]
 
 SUFFIX = ".ckpt"
 

@@ -14,6 +14,11 @@
   GanState           a GAN's generator and discriminator, a TrainState each
                      (the JAX package's steps_be_gan.GanState): BE_GAN's and
                      BCP's.
+  FontState          BE_font's three optimizers (the JAX package's
+                     steps_be_font.FontState): `g` over all of the
+                     generator, `style` over its style encoder only (the
+                     same tensors, a second Adam), `d` over the
+                     discriminator.
   GroupedTrainState  one optimizer per top-level submodule (the VAE-GAN's
                      four RMSprops), the JAX package's `grouped_transform`.
                      The reference's retained backwards accumulate into
@@ -147,6 +152,35 @@ class GanState:
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Strict, as TrainState.load_state_dict."""
         self.g.load_state_dict(sd["g"])
+        self.d.load_state_dict(sd["d"])
+
+
+@dataclass
+class FontState:
+    """BE_font's train states: `g` (Adam over every generator parameter),
+    `style` (a second Adam, over g.model.style_encoder's parameters only;
+    its model is that submodule) and `d`. Saved and restored whole, under
+    the keys g, style and d."""
+
+    g: TrainState
+    style: TrainState
+    d: TrainState
+
+    @classmethod
+    def create(cls, g: nn.Module, d: nn.Module, lr: float) -> "FontState":
+        """Three Adam(lr, (0.9, 0.999), eps 1e-8); g must have a
+        `style_encoder` submodule."""
+        return cls(TrainState.create(g, lr), TrainState.create(g.style_encoder, lr),
+                   TrainState.create(d, lr))
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"g": self.g.state_dict(), "style": self.style.state_dict(),
+                "d": self.d.state_dict()}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Strict, as TrainState.load_state_dict."""
+        self.g.load_state_dict(sd["g"])
+        self.style.load_state_dict(sd["style"])
         self.d.load_state_dict(sd["d"])
 
 
