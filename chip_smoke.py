@@ -29,6 +29,13 @@ Phases, in order; each raises on failure and nothing is caught:
               the gradients with dq and dk exactly 0; whether _tma_operand
               copies k and v; the kernel's, the copies', the plain
               version's, the library call's and the plain backward's times.
+              And at BP's training shape with bf16 operands (B 8, N 2048,
+              Dk 90, Dv 720, the model's layout, as bf16 autocast leaves
+              them): SpatialAttention's bf16 forward and gradients against
+              autograd of the plain version in f32; the times of the kernel
+              call, of its two _tma_operand copies alone, of the plain
+              forward and backward, and of the library call in bf16, with
+              the backend it chose.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -179,9 +186,32 @@ Phases, in order; each raises on failure and nothing is caught:
               stepped (plus Adam's first-step slope times the gradients'
               difference), in f64 (the plain attention on both) each phase's
               losses and gradients, dq and dk of every block exactly 0.
-The attention kernel is on no path of phases 7-14: its launch count must
-not move there. Phases 15-16, 18-19 and 21-22 are driven with the count set
-to 0 before them.
+24. bp_bf16-train -- BP training in bf16 through train_bp --dtype bfloat16
+              at 512 px, batch 8, the full pyramid: an epoch of 3 iterations
+              (18 launches each), test_bp on the run dir; a warm-up and three
+              timed bf16 iterations beside phase 5's f32 ones, the peak
+              memory and a profile; one iteration in bf16 and one in f32 on
+              the card from the same weights and batch, the seven losses
+              within the JAX package's bf16 budget (5% + 0.05).
+25. style_gan-train -- Style_GAN (the bubble-style VAE-GAN) through the
+              port's train_style_gan CLI at 256 px, z 512, batch 32: f32 for
+              an epoch of 2 iterations, a resume of it with --scan_steps 2,
+              bf16 for an epoch (each run dir deleted once checked: a
+              checkpoint is about 5.2 GB). Then E's, G's and D's parameter
+              counts, the step's FLOPs and bound blended and at the (16, 16)
+              split, and in f32 and bf16, blended and split, a warm-up and
+              three timed steps with the E/G phase, the latent loss with G's
+              step and the D phase apart, the peak memory, and a profile of
+              the blended step in each dtype.
+26. style_gan parity -- one Style_GAN step at 64 px, z 512, batch 4, full
+              width, blended (f32 also at the (2, 2) split), on the card and
+              on the CPU (TF32 off), phase by phase from the same state: in f32 the
+              losses and the weights each Adam stepped (plus Adam's slope
+              times the gradients' difference), in f64 the losses and the
+              gradients of the net each phase steps.
+The attention kernel is on no path of phases 7-14, 25 and 26: its launch
+count must not move there. Phases 15-16, 18-19, 21-22 and 24 are driven with
+the count set to 0 before them.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -347,6 +377,28 @@ FONT_PER_STEP = 3 * FONT_PER_G_FORWARD + 3 * FONT_PER_D_FORWARD  # 54
 FONT_SHAPES = [(FONT_TRAIN_BATCH, 1, 32, 256), (FONT_INFER_BATCH, 1, 32, 256)]
 # phase 23 on the CPU as well: 64 px, batch 4, full width; BE_PARITY_TOL's bounds
 FONT_PARITY = dict(img=64, batch=4, lr=1e-4)
+# BP training in bf16 (phase 24, and phase 2 at its attention shape): 512 px,
+# batch 8, the full pyramid; the CLI runs an epoch of BP_BF16_ITERATIONS
+BP_BF16_SHAPE = (TRAIN_BATCH,) + BP_SHAPE[1:]  # (8, 2048, 90, 720)
+BP_BF16_ITERATIONS = 3
+# the bf16 attention's output and gradients (rounded once to bf16, computed
+# in f32) against autograd of the plain version in f32: one bf16 rounding
+# (2^-8 relative) of each element, plus summation order
+BF16_ATTENTION_TOL = (1e-2, 1e-2)
+# bf16 losses against f32: the JAX package's budget (tests/test_bf16_families.py:
+# 22-29), 5% relative + 0.05
+BF16_BUDGET = (0.05, 0.05)
+# Style_GAN at the JAX CLI's defaults (train_style_gan.py:32-69, the
+# reference's train_Style_GAN.py:287-302): 256 px, z 512, batch 32, two
+# classes; the CLI runs epochs of SG_ITERATIONS iterations, SG_TIMED steps
+# are timed after a warm-up, blended and at the (B/2, B/2) split
+SG_IMG, SG_Z, SG_BATCH = 256, 512, 32
+SG_ITERATIONS = 2
+SG_TIMED = 3
+SG_SPLIT = (SG_BATCH // 2, SG_BATCH // 2)
+# phase 26 on the CPU as well: 64 px, z 512, batch 4, full width;
+# BE_PARITY_TOL's bounds
+SG_PARITY = dict(img=64, batch=4, z=512, lr=1e-4)
 
 
 def gpu_line() -> str:
@@ -511,14 +563,19 @@ def _forward_times(shape, layout: str):
                 q4, k4, v4, scale=1.0)))
 
 
-def _forward_bound(shape):
-    """(bound_ms, bound_by, flops) of the attention forward: the larger of
-    its products at the TF32 rate, three passes each, and its f32 bytes
-    (q, k, v read once, the output written once) at the memory rate."""
+def _forward_bound(shape, dtype=torch.float32):
+    """(bound_ms, bound_by, flops) of the attention forward on `dtype`
+    operands: the larger of its products at the tensor-core rate for that
+    type (f32: TF32, three passes each; bf16: one pass at the bf16 rate, the
+    operands being exact there) and its bytes in that type (q, k, v read
+    once, the output written once) at the memory rate."""
     b, n, dk, dv = shape
     flops = 2.0 * b * n * n * (dk + dv)
-    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
-    t_bytes = 4.0 * (2 * b * n * dk + 2 * b * n * dv) / PEAK_BYTES_PER_S * 1e3
+    passes, peak = (1, PEAK_BF16_FLOPS) if dtype == torch.bfloat16 else (TF32_PASSES,
+                                                                         PEAK_TF32_FLOPS)
+    t_ops = passes * flops / peak * 1e3
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    t_bytes = itemsize * (2 * b * n * dk + 2 * b * n * dv) / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
@@ -528,6 +585,41 @@ def _worst(got: torch.Tensor, ref: torch.Tensor, tol, scale: float = None) -> fl
     atol, rtol = tol
     bound = atol * (float(ref.abs().max()) if scale is None else scale) + rtol * ref.abs()
     return float(((got - ref).abs() / bound.clamp(min=1e-30)).max())
+
+
+def _hold_step(tag: str, label: str, ref: tuple, got: tuple, dtype, lr: float,
+               scale_key=lambda k: k) -> None:
+    """Holds a training step's (or one of its phases') results on the card
+    against the CPU's: ref and got are (losses, tensors), the tensors keyed
+    "grad <name>" and "weight <name>" after the step. Every loss within
+    BE_PARITY_TOL[dtype]; in f64 every gradient, within the tolerance of the
+    largest magnitude of the reference at scale_key(k) (a gradient whose
+    true value is 0 is held to a neighbour's scale); in f32 every weight,
+    within the bound plus Adam's first-step slope lr / eps times the
+    gradients' difference. Prints both, and raises above 1 or on a value
+    that is not finite."""
+    (ref_m, ref_t), (got_m, got_t) = ref, got
+    tol, f64 = BE_PARITY_TOL[dtype], dtype == torch.float64
+    worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in ref_m)
+    held = {}
+    for k in ref_t:
+        if f64 and k.startswith("grad"):
+            held[k] = _worst(got_t[k], ref_t[k], tol, float(ref_t[scale_key(k)].abs().max()))
+        elif not f64 and k.startswith("weight"):
+            gk = "grad" + k[len("weight"):]
+            slack = 1.001 * lr / 1e-8 * (got_t[gk] - ref_t[gk]).abs()
+            bound = tol[0] * float(ref_t[k].abs().max()) + tol[1] * ref_t[k].abs() + slack
+            held[k] = float(((got_t[k] - ref_t[k]).abs() / bound.clamp(min=1e-30)).max())
+    worst, name = max((v, k) for k, v in held.items())
+    print(f"[{tag}] {label} losses card vs CPU: " + " ".join(
+        f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in ref_m))
+    print(f"[{tag}] {label}: worst loss at {worst_loss:.2e} of its bound ({loss}), worst of "
+          f"{len(held)} {'gradients' if f64 else 'weights'} at {worst:.2e} ({name}); bound atol "
+          f"{tol[0]:g} x max |ref| + rtol {tol[1]:g} x |ref|"
+          f"{'' if f64 else ' + lr / eps x |grad difference|'}")
+    if worst_loss > 1 or worst > 1 or not all(
+            bool(torch.isfinite(t).all()) for t in list(got_t.values()) + list(got_m.values())):
+        raise AssertionError(f"[{tag}] the card's {label} disagrees with the CPU's")
 
 
 def _grad_check(shape, layout, q_scale, seed) -> None:
@@ -800,7 +892,9 @@ def _profile(run, label: str, runs: int = 3) -> None:
                       if e.name == "aten::conv_transpose2d" and e.sequence_nr >= 0}
     groups = {}
     for e in prof.events():
-        if e.device_type.name != "CPU" or not e.kernels:
+        # "Command Buffer Full" is the tracer's span for a launch that waited
+        # on a full launch queue: its kernels are the launching op's as well
+        if e.device_type.name != "CPU" or not e.kernels or e.name == "Command Buffer Full":
             continue
         ops, parent, transposed = [], e, False
         while parent is not None:
@@ -882,41 +976,45 @@ def phase_parity(weights: str) -> None:
             raise AssertionError(f"card forward disagrees with the CPU forward on {name}")
 
 
-def _check_run(run: str, epoch: int, launches: int) -> None:
-    """A train_bp run dir of one epoch: its checkpoint, finite logged losses,
-    and PER_ITERATION kernel launches for each iteration."""
+def _check_run(run: str, epoch: int, launches: int, iterations: int = TRAIN_ITERATIONS,
+               viz_freq: int = 2, label: str = "train") -> None:
+    """A train_bp run dir of one epoch of `iterations`: its checkpoint, a
+    finite log line every viz_freq iterations, and PER_ITERATION kernel
+    launches for each iteration."""
     from vaeplay_torch.cli import train_bp
 
-    if launches != PER_ITERATION * TRAIN_ITERATIONS:
-        raise AssertionError(f"{TRAIN_ITERATIONS} iterations launched the kernel {launches} "
+    if launches != PER_ITERATION * iterations:
+        raise AssertionError(f"{iterations} iterations launched the kernel {launches} "
                              f"times, not {PER_ITERATION} each")
     if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
         raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
     with open(os.path.join(run, "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
-    if [r["epoch"] for r in lines] != [epoch] * (TRAIN_ITERATIONS // 2) or not all(
+    if [r["epoch"] for r in lines] != [epoch] * (iterations // viz_freq) or not all(
             math.isfinite(r[k]) for r in lines for k in train_bp.AVG_KEYS):
         raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
-    print(f"[train] epoch {epoch}: " + "; ".join(
+    print(f"[{label}] epoch {epoch}: " + "; ".join(
         " ".join(f"{k}={r[k]:.4f}" for k in train_bp.AVG_KEYS) for r in lines))
 
 
-def _timed_iterations(gpu: str) -> None:
-    """A warm-up and three timed training iterations at PyTorch's defaults
-    (host clock, each from host batch to synchronize), the peak device
-    memory, and a profile of one iteration."""
+def _timed_iterations(gpu: str, dtype: str = "float32", label: str = "train") -> list:
+    """A warm-up and three timed training iterations in `dtype` at PyTorch's
+    defaults (host clock, each from host batch to synchronize), the peak
+    device memory, and a profile of one iteration. Returns the timed ms."""
     from vaeplay_torch.cli import train_bp
     from vaeplay_torch.data.bp_data import SyntheticEmitDataset
     from vaeplay_torch.ops import attention
     from vaeplay_torch.train.state import TrainState, step_lr_every_two_epochs
     from vaeplay_torch.train.steps_bp import make_bp_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
 
     dev = torch.device("cuda", 0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = random_model().to(dev)
     state = TrainState.create(model, 1e-3, step_lr_every_two_epochs(500))
-    step = make_bp_train_step(model)
+    step = make_bp_train_step(model, resolve_dtype(dtype))
+    timed = []
     ds = SyntheticEmitDataset(img_size=IMG)
     batches = [ds.sample_batch(TRAIN_BATCH, batch_seed=s) for s in range(5)]
     for i, batch in enumerate(batches[:4]):
@@ -930,19 +1028,23 @@ def _timed_iterations(gpu: str) -> None:
             raise AssertionError(f"an iteration did not launch the kernel {PER_ITERATION} times")
         if not all(bool(torch.isfinite(v)) for v in metrics.values()):
             raise AssertionError(f"non-finite losses: {metrics}")
-        print(f"[train] iteration {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms (PyTorch "
-              f"defaults: TF32 convolutions; batch {TRAIN_BATCH}, {IMG} px, two passes, host clock "
-              f"incl. host-to-device copy) on {gpu}")
-    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated: weights, gradients, Adam moments, activations)")
+        if i:
+            timed.append(ms)
+        print(f"[{label}] {dtype} iteration {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms "
+              f"(PyTorch defaults: TF32 convolutions; batch {TRAIN_BATCH}, {IMG} px, two passes, "
+              f"host clock incl. host-to-device copy) on {gpu}")
+    print(f"[{label}] {dtype} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (torch.cuda.max_memory_allocated: weights, gradients, Adam moments, activations)")
     imgs, p1, p2 = train_bp.to_device(batches[4], dev)
-    _profile(lambda: step(state, imgs, p1, p2), "train", runs=1)
+    _profile(lambda: step(state, imgs, p1, p2), f"{label} {dtype}", runs=1)
+    return timed
 
 
-def phase_train(tmp: str, gpu: str) -> int:
+def phase_train(tmp: str, gpu: str, timed: list) -> int:
     """The training path: train_bp on cuda:0 for one epoch, a resume of it
-    for a second, test_bp on the resumed run dir; then timed iterations.
-    Returns the attention kernel's launches over the whole phase."""
+    for a second, test_bp on the resumed run dir; then timed iterations,
+    whose ms are appended to `timed`. Returns the attention kernel's
+    launches over the whole phase."""
     from vaeplay_torch.cli import test_bp, train_bp
     from vaeplay_torch.ops import attention
 
@@ -974,7 +1076,7 @@ def phase_train(tmp: str, gpu: str) -> int:
     shutil.rmtree(os.path.join(tmp, "a"))  # two checkpoints of about 1.1 GB each
     shutil.rmtree(os.path.join(tmp, "b"))
 
-    _timed_iterations(gpu)
+    timed.extend(_timed_iterations(gpu))
     return attention.flash_attention.launches
 
 
@@ -2735,7 +2837,7 @@ def phase_bcp_parity() -> None:
     from vaeplay_torch.models.bcp import Discriminator
     from vaeplay_torch.ops import attention
     from vaeplay_torch.train.state import GanState, TrainState
-    from vaeplay_torch.train.steps_bcp import METRIC_KEYS, make_bcp_train_step
+    from vaeplay_torch.train.steps_bcp import make_bcp_train_step
 
     cfg = BCP_PARITY
     b, img, points, lr = cfg["batch"], cfg["img"], cfg["points"], cfg["lr"]
@@ -2765,36 +2867,9 @@ def phase_bcp_parity() -> None:
                 got = {f"{kind} {net} {k}": (p.grad if kind == "grad" else p).detach().cpu()
                        for net, model in (("g", g), ("d", d)) for k, p in model.named_parameters()
                        for kind in ("grad", "weight")}
-                results.append((got, {k: v.cpu() for k, v in m.items()}))
-            (ref_t, ref_m), (got_t, got_m) = results
-            tol = BE_PARITY_TOL[dtype]
-            worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in METRIC_KEYS)
-            if dtype == torch.float64:
-                held = {k: _worst(got_t[k], ref_t[k], tol,
-                                  float(ref_t[BCP_ZERO_GRADS.get(k, k)].abs().max()))
-                        for k in ref_t if k.startswith("grad")}
-            else:  # weights: the bound plus Adam's slope at g = 0 times the gradients' difference
-                held = {}
-                for k in ref_t:
-                    if k.startswith("weight"):
-                        gk = "grad" + k[len("weight"):]
-                        slack = 1.001 * lr / 1e-8 * (got_t[gk] - ref_t[gk]).abs()
-                        bound = (tol[0] * float(ref_t[k].abs().max()) + tol[1] * ref_t[k].abs()
-                                 + slack)
-                        held[k] = float(((got_t[k] - ref_t[k]).abs() / bound.clamp(min=1e-30))
-                                        .max())
-            worst, name = max((v, k) for k, v in held.items())
-            label = f"{str(dtype)[6:]}{' point attention' if pa else ''}"
-            print(f"[bcp parity] {label} losses card vs CPU: " + " ".join(
-                f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in METRIC_KEYS))
-            print(f"[bcp parity] {label}: worst loss at {worst_loss:.2e} of its bound ({loss}), "
-                  f"worst of {len(held)} {'gradients' if dtype == torch.float64 else 'weights'} "
-                  f"at {worst:.2e} ({name}); bound atol {tol[0]:g} x max |ref| + rtol {tol[1]:g} "
-                  f"x |ref|{'' if dtype == torch.float64 else ' + lr / eps x |grad difference|'}")
-            if worst_loss > 1 or worst > 1 or not all(
-                    bool(torch.isfinite(t).all()) for t in list(got_t.values())
-                    + list(got_m.values())):
-                raise AssertionError(f"the card's {label} BCP step disagrees with the CPU's")
+                results.append(({k: v.cpu() for k, v in m.items()}, got))
+            _hold_step("bcp parity", f"{str(dtype)[6:]}{' point attention' if pa else ''}",
+                       *results, dtype, lr, lambda k: BCP_ZERO_GRADS.get(k, k))
 
 
 # ---------------------------------------------------------------------------
@@ -3231,7 +3306,6 @@ def phase_be_font_parity() -> None:
             states[key], steps[key] = fs, make_be_font_train_step(fs.g.model, fs.d.model)
             batches[key] = tuple(torch.as_tensor(a).to(dev, dtype) if a.dtype != np.int64
                                  else torch.as_tensor(a).to(dev) for a in arrays)
-        tol = BE_PARITY_TOL[dtype]
         for phase, launches, stepped in (("d_phase", 30, "d"), ("g_phase", 18, "g"),
                                          ("s_phase", 6, "style")):
             states["cuda"].load_state_dict(states["cpu"].state_dict())
@@ -3250,33 +3324,507 @@ def phase_be_font_parity() -> None:
                                 {f"{kind} {k}": (p.grad if kind == "grad" else p).detach().cpu()
                                  for k, p in model.named_parameters() for kind in ("grad", "weight")
                                  if p.grad is not None})
-            (ref_m, ref_t), (got_m, got_t) = results["cpu"], results["cuda"]
-            worst_loss, loss = max((_worst(got_m[k], ref_m[k], tol), k) for k in ref_m)
-            held = {}
-            for k in ref_t:
-                if dtype == torch.float64 and k.startswith("grad"):
-                    scale = float(ref_t[k].abs().max())
-                    if scale == 0:  # an attention block's q and k: exactly 0 on both
-                        held[k] = 0.0 if not got_t[k].any() else math.inf
+            _hold_step("be_font parity", f"{str(dtype)[6:]} {phase} ({stepped})", results["cpu"],
+                       results["cuda"], dtype, lr)
+
+
+# ---------------------------------------------------------------------------
+# BP in bf16: phase 2's bf16 check at the training shape and phase 24
+
+
+def phase_kernels_bp_bf16(gpu: str) -> dict:
+    """Phase 2 at BP's training shape with bf16 operands (B 8, N 2048, Dk 90,
+    Dv 720, channel-major, as the 1x1 convolutions leave q, k and v under
+    bf16 autocast): SpatialAttention's forward and gradients (bf16 output,
+    bf16 gradients of the f32 recompute backward) against autograd through
+    the plain version in f32 on the same values; then the times of the
+    kernel call (the f32 widening of q and the _tma_operand copies of k and
+    v included), the two copies alone, the plain version, the plain backward
+    and the library call in bf16 (on position-major copies, with the backend
+    it chose). Returns the kernel line's bp_bf16_* keys."""
+    from vaeplay_torch.ops import attention
+
+    shape = BP_BF16_SHAPE
+    b, n, dk, dv = shape
+    q, k, v = _qkv(shape, torch.bfloat16, seed=600, layout="c")
+    g = _qkv(shape, torch.bfloat16, seed=1600, layout="c")[2]
+    before = attention.flash_attention.launches
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attention.spatial_self_attention(qg, kg, vg)
+    out.backward(g)
+    qr, kr, vr = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref = attention.reference_attention(qr, kr, vr)
+    ref.backward(g.float())
+    torch.cuda.synchronize()
+    if attention.flash_attention.launches != before + 1 or out.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 forward did not launch the kernel once with a bf16 result")
+    held = {"output": _worst(out.detach().float(), ref.detach(), BF16_ATTENTION_TOL)}
+    for name, got, want in (("dq", qg.grad, qr.grad), ("dk", kg.grad, kr.grad),
+                            ("dv", vg.grad, vr.grad)):
+        if got.dtype != torch.bfloat16 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} is {got.dtype} or not finite")
+        held[name] = _worst(got.float(), want, BF16_ATTENTION_TOL)
+    err = float((out.detach().float() - ref.detach()).abs().max())
+    print(f"[kernels] BP bf16 shape B,N,Dk,Dv={shape}, the model's layout: output and dq, dk, dv "
+          f"(bf16) against autograd of the plain version in f32: " + ", ".join(
+              f"{k} at {v:.3f}" for k, v in held.items())
+          + f" of the bound (atol {BF16_ATTENTION_TOL[0]:g} x max |ref| + rtol "
+          f"{BF16_ATTENTION_TOL[1]:g} x |ref|); output max abs err {err:.3e}")
+    if max(held.values()) > 1:
+        raise AssertionError("the bf16 attention disagrees with the plain version in f32")
+
+    res = torch.empty(b, dv, n, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+    copied = not (attention._tma_operand(k) is k and attention._tma_operand(v) is v)
+    ms = cuda_ms(lambda: attention.flash_attention(q, k, v, out=res))
+    copy_ms = cuda_ms(lambda: (attention._tma_operand(k), attention._tma_operand(v)))
+    plain_ms = cuda_ms(lambda: attention.reference_attention(q, k, v))
+    bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=10)
+    q4, k4, v4 = (t.contiguous()[:, None] for t in (q, k, v))
+    try:
+        from torch.nn.attention import SDPBackend
+
+        choice = int(torch._fused_sdp_choice(q4, k4, v4, scale=1.0))
+        backend = next((m.name for m in SDPBackend.__members__.values() if int(m.value) == choice),
+                       str(choice))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        backend = f"unknown ({type(e).__name__})"
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, scale=1.0))
+    bound_ms, bound_by, flops = _forward_bound(shape, torch.bfloat16)
+    copy_bytes = 2 * b * n * (dk + dv) * (2 + 4)
+    print(f"[kernels] BP bf16 shape B,N,Dk,Dv={shape}, the model's layout, on {gpu}: kernel_ms "
+          f"{ms:.4f} (k and v {'COPIED' if copied else 'read with no copy'} by _tma_operand: the "
+          f"two copies alone {copy_ms:.4f} ms, {copy_ms / ms:.1%}, {copy_bytes / 2**20:.1f} MiB "
+          f"read and written), plain_ms {plain_ms:.4f}, attention_backward_ms {bwd_ms:.4f}, "
+          f"library_ms {library_ms:.4f} (scaled_dot_product_attention bf16, position-major, "
+          f"backend {backend}), bound_ms {bound_ms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP on "
+          f"bf16 operands at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; the f32 bound "
+          f"{_forward_bound(shape)[0]:.4f} ms), "
+          f"{bound_ms / ms:.1%} of its bound; per bf16 training iteration ({PER_ITERATION} of "
+          f"each) {PER_ITERATION * ms:.2f} ms forward, {PER_ITERATION * copy_ms:.2f} ms of it "
+          f"copies, {PER_ITERATION * bwd_ms:.2f} ms plain backward")
+    return {"bp_bf16_shape": list(shape), "bp_bf16_max_abs_err": err, "bp_bf16_ms": ms,
+            "bp_bf16_copy_ms": copy_ms, "bp_bf16_copied": copied, "bp_bf16_plain_ms": plain_ms,
+            "bp_bf16_backward_ms": bwd_ms, "bp_bf16_bound_ms": bound_ms,
+            "bp_bf16_bound_by": bound_by, "bp_bf16_library_ms": library_ms,
+            "bp_bf16_sdpa_backend": backend, "bp_bf16_launches": None}
+
+
+def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> int:
+    """BP training in bf16 through the train_bp CLI at 512 px, batch 8, the
+    full pyramid: an epoch of BP_BF16_ITERATIONS iterations (PER_ITERATION
+    launches each), test_bp on the run dir; then a warm-up and three timed
+    bf16 iterations beside phase 5's f32 ones (f32_ms), the peak memory and
+    a profile; then one iteration in bf16 and one in f32 on the card from
+    the same weights and batch, their seven losses within BF16_BUDGET and
+    not all equal (a bf16 request that ran in f32 would match exactly).
+    Returns the kernel's launches over the phase's bf16 runs; the f32
+    comparison iteration's are not counted."""
+    from vaeplay_torch.cli import test_bp, train_bp
+    from vaeplay_torch.data.bp_data import SyntheticEmitDataset
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.state import TrainState
+    from vaeplay_torch.train.steps_bp import make_bp_train_step
+
+    attention.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    run = train_bp.main(["--gpu", "0", "--img_size", str(IMG), "--batchsize", str(TRAIN_BATCH),
+                         "--iterations", str(BP_BF16_ITERATIONS), "--viz_freq",
+                         str(BP_BF16_ITERATIONS), "--epoch", "1", "--dtype", "bfloat16",
+                         "--res_output", os.path.join(tmp, "bf16_results"),
+                         "--model_output", os.path.join(tmp, "bf16_run")])
+    print(f"[bp_bf16-train] CLI run --dtype bfloat16 (init, {BP_BF16_ITERATIONS} iterations, "
+          f"checkpoint) {time.perf_counter() - t0:.2f} s: {run}")
+    _check_run(run, 0, attention.flash_attention.launches, BP_BF16_ITERATIONS,
+               BP_BF16_ITERATIONS, "bp_bf16-train")
+    before = attention.flash_attention.launches
+    written = test_bp.main(["--model_path", run, "--gpu", "0", "--img_size", str(IMG),
+                            "--batchsize", "4", "--res_output", os.path.join(tmp, "bf16_test")])
+    if attention.flash_attention.launches - before != PER_FORWARD or not written or not all(
+            p.endswith(".png") and os.path.getsize(p) > 0 for p in written):
+        raise AssertionError(f"test_bp on the bf16 run dir wrote {written}")
+    print(f"[bp_bf16-train] test_bp --model_path <bf16 run dir> wrote {written}")
+    shutil.rmtree(os.path.join(tmp, "bf16_run"))
+
+    bf16_ms = _timed_iterations(gpu, "bfloat16", "bp_bf16-train")
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    print(f"[bp_bf16-train] median iteration: bf16 {med(bf16_ms):.2f} ms, f32 (phase 5) "
+          f"{med(f32_ms):.2f} ms, bf16 / f32 {med(bf16_ms) / med(f32_ms):.3f} on {gpu}")
+
+    dev = torch.device("cuda", 0)
+    batch = train_bp.to_device(SyntheticEmitDataset(img_size=IMG).sample_batch(
+        TRAIN_BATCH, batch_seed=11), dev)
+    losses, launches = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        model = random_model(5).to(dev)
+        _, m = make_bp_train_step(model, dtype)(TrainState.create(model, 1e-3), *batch)
+        losses[dtype] = {k: float(v) for k, v in m.items()}
+        del model
+        if launches is None:  # the bf16 runs end here
+            launches = attention.flash_attention.launches
+    rel, absolute = BF16_BUDGET
+    worst, name = max((abs(losses[torch.bfloat16][k] - v) / (rel * abs(v) + absolute), k)
+                      for k, v in losses[torch.float32].items())
+    print(f"[bp_bf16-train] one iteration bf16 vs f32 from the same weights and batch: " + " ".join(
+        f"{k}={losses[torch.bfloat16][k]:.5f}/{v:.5f}" for k, v in losses[torch.float32].items())
+        + f"; worst {name} at {worst:.3f} of the budget ({rel:.0%} + {absolute:g})")
+    if worst > 1 or not all(math.isfinite(v) for v in losses[torch.bfloat16].values()):
+        raise AssertionError("the card's bf16 BP iteration is outside the bf16 budget")
+    if losses[torch.bfloat16] == losses[torch.float32]:
+        raise AssertionError("the bf16 BP iteration's losses equal the f32 one's: it ran in f32")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Style_GAN: phases 25-26
+
+
+def style_gan_flops(img: int, z: int, batch: int, split=None) -> dict:
+    """FLOPs (multiply-adds x 2) of one Style_GAN step at `batch`, by part,
+    {part: (forward, backward)}, from the layer shapes: every Conv2d,
+    ConvTranspose2d and Linear, counted by hooks on the meta device, blended
+    or at `split` on a batch sorted half and half. "eg_phase" is the E/G
+    phase (G's x_gen forward; E, G's x_rec forward and D twice with E's and
+    G's gradients, D frozen), "latent_g" the latent loss (E forward, its
+    input gradient) and the x_gen branch's backward, "d_phase" D twice with
+    its gradients; "fc_out" is mlp.model.2's share of the step. A layer's
+    backward costs its forward once for the weight gradient, if it is taken,
+    and once for the input gradient, if its input needs one."""
+    from vaeplay_torch.models.style_gan import Discriminator, Generator, StyleEncoder
+
+    with torch.device("meta"):
+        e, g, d = StyleEncoder(z, img), Generator(img, z), Discriminator(img)
+    out = {k: [0, 0] for k in ("eg_phase", "latent_g", "d_phase", "fc_out")}
+    part, fc_out = {"fwd": "eg_phase", "bwd": "eg_phase"}, g.mlp.model[2].fc[0]
+
+    def hook(m, inputs, y):
+        x = inputs[0]
+        if isinstance(m, torch.nn.Linear):
+            f = 2 * y.numel() * m.in_features
+        else:
+            f = 2 * y.numel() * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+            if isinstance(m, torch.nn.ConvTranspose2d):  # its products run over the input map
+                f = 2 * x.numel() * m.out_channels * math.prod(m.kernel_size)
+        bwd = f * (int(m.weight.requires_grad) + int(x.requires_grad)) if (
+            torch.is_grad_enabled()) else 0
+        out[part["fwd"]][0] += f
+        out[part["bwd"]][1] += bwd
+        if m is fc_out:
+            out["fc_out"][0] += f
+            out["fc_out"][1] += bwd
+
+    for m in list(e.modules()) + list(g.modules()) + list(d.modules()):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)):
+            m.register_forward_hook(hook)
+    x = torch.zeros(batch, 3, img, img, device="meta")
+    zs = torch.zeros(batch, z, device="meta")
+    labels = torch.zeros(batch, dtype=torch.int64, device="meta")
+    part["bwd"] = "latent_g"
+    x_gen = g(x, zs, labels, split)
+    part["bwd"] = "eg_phase"
+    d.requires_grad_(False)
+    mu, _ = e(x)
+    x_rec = g(x, mu, labels, split)
+    d(x_rec, x)
+    d(x_gen.detach().requires_grad_(), x)
+    part["fwd"] = part["bwd"] = "latent_g"
+    e.requires_grad_(False)
+    e(x_gen.detach().requires_grad_())
+    part["fwd"] = part["bwd"] = "d_phase"
+    d.requires_grad_(True)
+    d(x, x)
+    d(x_rec.detach(), x)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _check_sg_run(run: str, epoch: int, label: str) -> None:
+    """A train_style_gan run dir of one epoch: its checkpoint and one log
+    line of the seven averaged losses, finite."""
+    from vaeplay_torch.train.steps_style_gan import AVG_KEYS
+
+    if sorted(os.listdir(run)) != [f"{epoch}.ckpt", "metrics.jsonl", "record.txt"]:
+        raise AssertionError(f"run dir {run} holds {sorted(os.listdir(run))}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    if [r["epoch"] for r in lines] != [epoch] or not all(
+            math.isfinite(r[k]) for r in lines for k in AVG_KEYS):
+        raise AssertionError(f"logged losses of epoch {epoch}: {lines}")
+    r = lines[0]
+    print(f"[style_gan-train] {label} epoch {epoch}: " + " ".join(f"{k}={r[k]:.4f}"
+                                                              for k in AVG_KEYS)
+          + f" ({r['images_per_sec']:.1f} img/s over the epoch, CLI's host clock); checkpoint "
+          f"{os.path.getsize(os.path.join(run, f'{epoch}.ckpt')) / 2**30:.2f} GiB")
+
+
+def _sg_cli(tmp: str, name: str, dtype: str, *extra) -> str:
+    """train_style_gan at 256 px, z 512, batch 32, in `dtype`; it must not
+    launch the attention kernel."""
+    from vaeplay_torch.cli import train_style_gan
+    from vaeplay_torch.ops import attention
+
+    before = attention.flash_attention.launches
+    t0 = time.perf_counter()
+    run = train_style_gan.main(["--gpu", "0", "--img_size", str(SG_IMG), "--z_dim", str(SG_Z),
+                                "--batchsize", str(SG_BATCH), "--iterations",
+                                str(SG_ITERATIONS), "--viz_freq", str(SG_ITERATIONS),
+                                "--dtype", dtype, "--res_output", os.path.join(tmp, "sg_results"),
+                                "--model_output", os.path.join(tmp, name), *extra])
+    launches = attention.flash_attention.launches - before
+    print(f"[style_gan-train] CLI run {dtype} {' '.join(extra)} (init, {SG_ITERATIONS} "
+          f"iterations, checkpoint) {time.perf_counter() - t0:.2f} s, {launches} kernel "
+          f"launches: {run}")
+    if launches:
+        raise AssertionError(f"train_style_gan launched the attention kernel {launches} times")
+    return run
+
+
+def _sg_timed(ss, dtype: str, split, gpu: str) -> tuple:
+    """A warm-up and SG_TIMED recorded-noise steps of
+    make_style_gan_train_step on the StyleGanState `ss` in `dtype`, blended
+    (split None) or at `split`, on bubble batches with SG_BATCH // 2 rows of
+    each label, sorted: the E/G phase, the latent loss with G's step, and
+    the D phase timed apart on the host clock (each ending in a
+    synchronize); the peak device memory. Returns (step, batch) for a
+    profile and the median (E/G, latent+G, D, step) ms."""
+    import numpy as np
+
+    from vaeplay_torch.cli.train_style_gan import Bucketing, render_batch
+    from vaeplay_torch.data.be_data import sample_bubble_params
+    from vaeplay_torch.train.steps_style_gan import make_style_gan_train_step
+    from vaeplay_torch.utils.amp import resolve_dtype
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_style_gan_train_step(ss.e.model, ss.g.model, ss.d.model, SG_Z,
+                                     resolve_dtype(dtype))
+    labels = np.repeat([0, 1], SG_BATCH // 2)
+    noise = torch.Generator(device=dev).manual_seed(3)
+    label = f"{dtype} {'blended' if split is None else f'split {split}'}"
+    times = []
+    for i in range(SG_TIMED + 1):
+        params, _ = sample_bubble_params(SG_IMG, SG_BATCH, batch_seed=i)
+        xt, xc, lab, _ = render_batch(params, labels, Bucketing(False, 2, SG_BATCH), SG_IMG, dev)
+        eps, z = (torch.randn((SG_BATCH, SG_Z), generator=noise, device=dev) for _ in range(2))
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        ss, branch, m = step.eg_phase(ss, xt, xc, lab, eps, z, split)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ss, lm = step.latent_g_phase(ss, branch, z)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ss, dm = step.d_phase(ss, xt, xc, lab, branch[2])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        del branch
+        metrics = {**m, **lm, **dm}
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"non-finite losses: {metrics}")
+        ms = tuple((t[j + 1] - t[j]) * 1e3 for j in range(3)) + ((t[3] - t[0]) * 1e3,)
+        if i:
+            times.append(ms)
+        print(f"[style_gan-train] {label} step {i}{' (warm-up)' if i == 0 else ''}: E/G phase "
+              f"{ms[0]:.2f} ms, latent+G {ms[1]:.2f} ms, D phase {ms[2]:.2f} ms, step "
+              f"{ms[3]:.2f} ms, {SG_BATCH / ms[3] * 1e3:.1f} images/s (PyTorch defaults; batch "
+              f"{SG_BATCH}, {SG_IMG} px, z {SG_Z}, host clock) on {gpu}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[style_gan-train] {label} peak device memory {peak:.2f} GiB (torch.cuda."
+          f"max_memory_allocated: three nets' weights, gradients, three Adams' moments, "
+          f"activations)")
+    medians = tuple(sorted(t[j] for t in times)[len(times) // 2] for j in range(4))
+    return (step, (xt, xc, lab, eps, z)), medians
+
+
+def _sg_parts(dtype: str, gpu: str) -> dict:
+    """CUDA-event ms, forward and backward at batch 32 in `dtype`, of parts
+    of G that the profile's kernel groups do not separate: its MLP (fc_out's
+    1.48 GB weight read by the forward and both backward products, and
+    under bf16 autocast cast once a forward), fc_out alone, and the
+    full-resolution 32-channel convolutions (conv1 and conv2, blended, and
+    the head's three ConvBlocks), each on inputs that need a gradient, as
+    in the step. A G forward of the step runs each part once."""
+    from vaeplay_torch.models.style_gan import Generator
+    from vaeplay_torch.utils.amp import autocast, resolve_dtype
+
+    dev, cdtype = torch.device("cuda", 0), resolve_dtype(dtype)
+    g = Generator(SG_IMG, SG_Z, generator=torch.Generator().manual_seed(1)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn(SG_BATCH, SG_Z, generator=gen, device=dev, requires_grad=True)
+    h = torch.randn(SG_BATCH, g.mlp.model[2].fc[0].in_features, generator=gen, device=dev,
+                    requires_grad=True)
+    x = torch.randn(SG_BATCH, 4, SG_IMG, SG_IMG, generator=gen, device=dev, requires_grad=True)
+    y = torch.randn(SG_BATCH, 32, SG_IMG, SG_IMG, generator=gen, device=dev, requires_grad=True)
+    labels = torch.arange(SG_BATCH, device=dev) % 2
+
+    def fwd_bwd(fn):
+        def run():
+            with autocast(dev, cdtype):
+                out = fn()
+            out.float().sum().backward()
+        return run
+
+    parts = {"G's MLP": fwd_bwd(lambda: g.mlp(z)),
+             "fc_out": fwd_bwd(lambda: g.mlp.model[2](h)),
+             "full-resolution convolutions": fwd_bwd(
+                 lambda: g.conv2(g.conv1(x, labels), labels).sum() + g.final[1:](y).sum())}
+    out = {k: cuda_ms(fn, iters=5) for k, fn in parts.items()}
+    print(f"[style_gan-train] {dtype} parts of a G forward and backward at batch {SG_BATCH} "
+          f"(CUDA events, on {gpu}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items()))
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_style_gan_train(tmp: str, gpu: str) -> dict:
+    """Style_GAN through the train_style_gan CLI at 256 px, z 512, batch 32:
+    f32 for an epoch of SG_ITERATIONS iterations, a resume of it with
+    --scan_steps 2 for a second, bf16 for an epoch (each run dir deleted
+    once checked: a checkpoint is about 5.2 GB); no attention launch. Then
+    E's, G's and D's parameter counts, the step's FLOPs and bound, and in f32
+    and bf16, blended and at SG_SPLIT, timed steps with the E/G, latent+G
+    and D phases apart, the peak memory, a profile of the blended step in
+    each dtype, and G's MLP and full-resolution convolutions timed apart
+    (_sg_parts). Returns the median step ms by (dtype, form)."""
+    from vaeplay_torch.cli.train_style_gan import build_state
+    from vaeplay_torch.models.style_gan import Discriminator, Generator, StyleEncoder
+
+    run = _sg_cli(tmp, "sg_a", "float32", "--epochs", "1")
+    _check_sg_run(run, 0, "float32")
+    resumed = _sg_cli(tmp, "sg_b", "float32", "--epochs", "2", "--resume", run,
+                      "--scan_steps", "2")
+    shutil.rmtree(os.path.join(tmp, "sg_a"))
+    _check_sg_run(resumed, 1, "float32 resumed, --scan_steps 2")
+    shutil.rmtree(os.path.join(tmp, "sg_b"))
+    _check_sg_run(_sg_cli(tmp, "sg_c", "bfloat16", "--epochs", "1"), 0, "bfloat16")
+    shutil.rmtree(os.path.join(tmp, "sg_c"))
+
+    with torch.device("meta"):  # the JAX init's counts are at 256 px, z 512
+        nets = {"E": StyleEncoder(512, 256), "G": Generator(256, 512), "D": Discriminator(256)}
+        counts = {k: sum(p.numel() for p in m.parameters()) for k, m in nets.items()}
+        counts["G's mlp.model.2"] = sum(p.numel() for p in nets["G"].mlp.model[2].parameters())
+    print("[style_gan-train] parameters: " + ", ".join(f"{k} {v / 1e6:.2f} M"
+                                                       for k, v in counts.items()))
+    if (round(counts["E"] / 1e4), round(counts["G"] / 1e4), round(counts["D"] / 1e4)) != (
+            4507, 37998, 392):
+        raise AssertionError(f"parameter counts {counts}, not E 45.07 M, G 379.98 M, D 3.92 M")
+    step_flops = {}
+    for split in (None, SG_SPLIT):
+        flops = style_gan_flops(SG_IMG, SG_Z, SG_BATCH, split)
+        total = sum(sum(flops[k]) for k in ("eg_phase", "latent_g", "d_phase"))
+        step_flops[split] = total
+        print(f"[style_gan-train] {'blended' if split is None else f'split {split}'} step "
+              f"(batch {SG_BATCH}) TFLOP from the layer shapes (forward, backward): " + "; ".join(
+                  f"{k} {v[0] / 1e12:.3f}, {v[1] / 1e12:.3f}" for k, v in flops.items())
+              + f"; step {total / 1e12:.3f} TFLOP, bound {total / PEAK_TF32_FLOPS * 1e3:.2f} ms "
+              f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, {total / PEAK_BF16_FLOPS * 1e3:.2f} "
+              f"ms at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 (dense tensor-core rates, 700 W); "
+              f"fc_out's share {sum(flops['fc_out']) / total:.2%}")
+    weights, fc_out = counts["E"] + counts["G"] + counts["D"], counts["G's mlp.model.2"]
+    print(f"[style_gan-train] bytes: {weights / 1e6:.1f} M f32 weights; the three Adams read "
+          f"and write weights, gradients and two moments, {weights * 4 * 7 / 1e9:.2f} GB a step, "
+          f"{weights * 4 * 7 / PEAK_BYTES_PER_S * 1e3:.2f} ms at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; fc_out's f32 weight {fc_out * 4 / 1e9:.2f} GB, "
+          f"cast to bf16 at every G forward under autocast")
+    medians = {}
+    # one seeded state (three nets and their Adams) goes on training through
+    # the four timed configurations
+    ss = build_state(SG_IMG, SG_Z, 2, 1e-4, 0, torch.device("cuda", 0))
+    for dtype, peak, rate in (("float32", PEAK_TF32_FLOPS, "TF32"),
+                              ("bfloat16", PEAK_BF16_FLOPS, "bf16")):
+        for split in (None, SG_SPLIT):
+            profiled, ms = _sg_timed(ss, dtype, split, gpu)
+            form = "blended" if split is None else f"split {split}"
+            medians[(dtype, form)] = ms[3]
+            print(f"[style_gan-train] {dtype} {form} median: E/G phase {ms[0]:.2f} ms, latent+G "
+                  f"{ms[1]:.2f} ms, D phase {ms[2]:.2f} ms, step {ms[3]:.2f} ms "
+                  f"({SG_BATCH / ms[3] * 1e3:.1f} images/s, {step_flops[split] / ms[3] / 1e9:.1f} "
+                  f"TFLOP/s, {step_flops[split] / peak * 1e3 / ms[3]:.1%} of the {rate} bound) "
+                  f"on {gpu}")
+            if split is None:
+                step, batch = profiled
+                _profile(lambda: step.recorded(ss, *batch), f"style_gan-train {dtype}", runs=1)
+            del profiled
+    del ss
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        blended = medians[(dtype, "blended")]
+        parts = _sg_parts(dtype, gpu)
+        print(f"[style_gan-train] {dtype} split {SG_SPLIT} / blended step: "
+              f"{medians[(dtype, f'split {SG_SPLIT}')] / blended:.3f}; two G forwards and "
+              f"backwards of each part over the blended step: " + ", ".join(
+                  f"{k} {2 * v / blended:.1%}" for k, v in parts.items()))
+    return medians
+
+
+def phase_style_gan_parity() -> None:
+    """One Style_GAN step at 64 px, z 512, batch 4 (two rows of each label,
+    sorted), full width, blended (and in f32 also at the (2, 2) split), on
+    the card and on the CPU from the same seeded weights, noise batch and recorded noise
+    (TF32 off), phase by phase: before the E/G phase both states are equal,
+    before the latent+G phase the card's E is loaded from the CPU's (G's
+    weights are in the x_gen branch's graph and stay), before the D phase
+    the card's D. f32: each phase's losses, and the weights its Adam
+    stepped, within the bound plus Adam's slope lr / eps times the
+    gradients' difference. f64: each phase's losses and the gradients of
+    the net it steps (G's: the E/G phase's plus the x_gen branch's);
+    StyleUp's transposed-conv biases (a true gradient of 0 before the
+    instance norm) to their layer's weight gradient's bound."""
+    import numpy as np
+
+    from vaeplay_torch.models.style_gan import Discriminator, Generator, StyleEncoder
+    from vaeplay_torch.train.state import StyleGanState
+    from vaeplay_torch.train.steps_style_gan import make_style_gan_train_step
+
+    cfg = SG_PARITY
+    b, img, z, lr = cfg["batch"], cfg["img"], cfg["z"], cfg["lr"]
+    rng = np.random.default_rng(17)
+    arrays = (rng.uniform(size=(b, 3, img, img)), rng.uniform(size=(b, 3, img, img)),
+              np.repeat([0, 1], b // 2), rng.normal(size=(b, z)), rng.normal(size=(b, z)))
+    base = (StyleEncoder(z, img, generator=torch.Generator().manual_seed(20)),
+            Generator(img, z, generator=torch.Generator().manual_seed(21)),
+            Discriminator(img, generator=torch.Generator().manual_seed(22)))
+    with torch.no_grad():  # every bias drawn (they start at 0)
+        gen = torch.Generator().manual_seed(23)
+        for m in base:
+            for name, p in m.named_parameters():
+                if name.endswith(".bias"):
+                    p.copy_((torch.rand(p.shape, generator=gen) - 0.5) * 0.4)
+    for dtype, splits in ((torch.float32, (None, (b // 2, b // 2))), (torch.float64, (None,))):
+        for split in splits:
+            states, steps, batches, branches = {}, {}, {}, {}
+            for key, dev in (("cpu", torch.device("cpu")), ("cuda", torch.device("cuda", 0))):
+                nets = [copy.deepcopy(m).to(dev, dtype).train() for m in base]
+                states[key] = StyleGanState.create(*nets, lr)
+                steps[key] = make_style_gan_train_step(*nets, z)
+                batches[key] = tuple(torch.as_tensor(a).to(dev) if a.dtype == np.int64
+                                     else torch.as_tensor(a).to(dev, dtype) for a in arrays)
+            for phase, stepped, reload in (("eg_phase", "e", None), ("latent_g_phase", "g", "e"),
+                                           ("d_phase", "d", "d")):
+                if reload:
+                    getattr(states["cuda"], reload).load_state_dict(
+                        getattr(states["cpu"], reload).state_dict())
+                results = {}
+                for dev in ("cpu", "cuda"):
+                    xt, xc, lab, eps, zs = batches[dev]
+                    fn = getattr(steps[dev], phase)
+                    if phase == "eg_phase":
+                        states[dev], branches[dev], m = fn(states[dev], xt, xc, lab, eps, zs, split)
+                    elif phase == "latent_g_phase":
+                        states[dev], m = fn(states[dev], branches[dev], zs)
                     else:
-                        held[k] = _worst(got_t[k], ref_t[k], tol, scale)
-                elif dtype == torch.float32 and k.startswith("weight"):
-                    gk = "grad" + k[len("weight"):]
-                    slack = 1.001 * lr / 1e-8 * (got_t[gk] - ref_t[gk]).abs()
-                    bound = tol[0] * float(ref_t[k].abs().max()) + tol[1] * ref_t[k].abs() + slack
-                    held[k] = float(((got_t[k] - ref_t[k]).abs() / bound.clamp(min=1e-30)).max())
-            worst, name = max((v, k) for k, v in held.items())
-            print(f"[be_font parity] {str(dtype)[6:]} {phase} losses card vs CPU: " + " ".join(
-                f"{k}={float(got_m[k]):.6f}/{float(ref_m[k]):.6f}" for k in ref_m))
-            print(f"[be_font parity] {str(dtype)[6:]} {phase}: worst loss at {worst_loss:.2e} of "
-                  f"its bound ({loss}), worst of {len(held)} "
-                  f"{'gradients' if dtype == torch.float64 else 'weights'} of {stepped} at "
-                  f"{worst:.2e} ({name}); bound atol {tol[0]:g} x max |ref| + rtol {tol[1]:g} x "
-                  f"|ref|{'' if dtype == torch.float64 else ' + lr / eps x |grad difference|'}")
-            if worst_loss > 1 or worst > 1 or not all(
-                    bool(torch.isfinite(t).all()) for t in list(got_t.values())
-                    + list(got_m.values())):
-                raise AssertionError(f"the card's {dtype} BE_font {phase} disagrees with the CPU's")
+                        states[dev], m = fn(states[dev], xt, xc, lab, branches[dev][2])
+                    model = getattr(states[dev], stepped).model
+                    results[dev] = ({k: v.cpu() for k, v in m.items()},
+                                    {f"{kind} {k}": (p.grad if kind == "grad" else p).detach().cpu()
+                                     for k, p in model.named_parameters()
+                                     for kind in ("grad", "weight")})
+                form = "blended" if split is None else f"split {split}"
+                _hold_step("style_gan parity", f"{str(dtype)[6:]} {form} {phase} ({stepped})",
+                           results["cpu"], results["cuda"], dtype, lr,
+                           lambda k: (k.replace(".bias", ".weight")
+                                      if k.endswith("up_convs.0.bias") else k))
 
 
 def profile_only(gpu: str) -> None:
@@ -3300,6 +3848,11 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     gpu = gpu_line()
+    start = time.perf_counter()
+
+    def stamp(what: str) -> None:  # the script's elapsed time, to budget its phases
+        print(f"[time] {what} done at {time.perf_counter() - start:.1f} s", flush=True)
+
     phase_build()
     if argv == ["--profile-only"]:
         profile_only(gpu)
@@ -3315,19 +3868,25 @@ def main(argv) -> int:
         kernel.update(phase_kernels_bc(gpu))
         kernel.update(phase_kernels_bcp(gpu))
         kernel.update(phase_kernels_be_font(gpu))
+        kernel.update(phase_kernels_bp_bf16(gpu))
+    stamp("phases 1-2")
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
         random_weights(weights)
         kernel["launches"] = phase_slice(tmp, weights, gpu)
         with strict_f32():
             phase_parity(weights)
-        kernel["launches"] += phase_train(tmp, gpu)
+        f32_ms = []
+        kernel["launches"] += phase_train(tmp, gpu, f32_ms)
+        stamp("phases 3-5")
         phase_vae_train(tmp, gpu)
+        stamp("phase 7")
         before = attention.flash_attention.launches
         phase_be_infer(tmp, gpu)
         phase_be_train(tmp, gpu)
         tree = phase_be_serve(tmp, gpu)
         phase_be_gan_train(tmp, tree, gpu)
+        stamp("phases 9-10, 12-13")
         if attention.flash_attention.launches != before:
             raise AssertionError("a BE or BE_GAN phase launched the attention kernel")
         attention.flash_attention.launches = 0
@@ -3335,16 +3894,27 @@ def main(argv) -> int:
         phase_bc_train(tmp, gpu)
         kernel["bc_launches"] = attention.flash_attention.launches
         kernel["launches"] += kernel["bc_launches"]
+        stamp("phases 15-16")
         attention.flash_attention.launches = 0
         phase_bcp_infer(tmp, gpu)
         phase_bcp_train(tmp, gpu)
         kernel["bcp_launches"] = attention.flash_attention.launches
         kernel["launches"] += kernel["bcp_launches"]
+        stamp("phases 18-19")
         attention.flash_attention.launches = 0
         phase_be_font_infer(tmp, gpu)
         phase_be_font_train(tmp, gpu)
         kernel["be_font_launches"] = attention.flash_attention.launches
         kernel["launches"] += kernel["be_font_launches"]
+        stamp("phases 21-22")
+        kernel["bp_bf16_launches"] = phase_bp_bf16_train(tmp, gpu, f32_ms)
+        kernel["launches"] += kernel["bp_bf16_launches"]
+        stamp("phase 24")
+        before = attention.flash_attention.launches
+        phase_style_gan_train(tmp, gpu)
+        if attention.flash_attention.launches != before:
+            raise AssertionError("a Style_GAN phase launched the attention kernel")
+        stamp("phase 25")
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
@@ -3353,9 +3923,16 @@ def main(argv) -> int:
         phase_be_gan_parity()
         if attention.flash_attention.launches != before:
             raise AssertionError("a BE or BE_GAN parity step launched the attention kernel")
+        stamp("phases 6, 8, 11, 14")
         phase_bc_parity()
         phase_bcp_parity()
         phase_be_font_parity()
+        stamp("phases 17, 20, 23")
+        before = attention.flash_attention.launches
+        phase_style_gan_parity()
+        if attention.flash_attention.launches != before:
+            raise AssertionError("the Style_GAN parity step launched the attention kernel")
+        stamp("phase 26")
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

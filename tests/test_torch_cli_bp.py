@@ -100,9 +100,6 @@ def test_no_cuda_raises_unless_cpu_is_asked_for(small_channels, monkeypatch, tmp
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_bp.main(["--img_size", "64", "--iterations", "1",
                        "--res_output", str(tmp_path), "--model_output", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="bfloat16 is not ported yet"):
-        train_bp.main(["--device", "cpu", "--dtype", "bfloat16", "--res_output", str(tmp_path),
-                       "--model_output", str(tmp_path)])
 
 
 def _train(tmp_path, name, *extra):
@@ -141,6 +138,20 @@ def test_train_cli_resume_and_render(small_channels, tmp_path, capsys):
     loaded = test_bp.load_model(resumed, 64, torch.device("cpu"))
     for k, v in ckpt["model"].items():
         assert torch.equal(loaded.state_dict()[k], v), k
+
+
+def test_train_cli_bf16_epoch(small_channels, tmp_path):
+    """--dtype bfloat16 trains an epoch of 2 iterations with finite logged
+    losses, and saves an f32 checkpoint."""
+    run = _train(tmp_path, "bf16", "--dtype", "bfloat16")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines] == [1, 2]
+    assert all(math.isfinite(r[k]) for r in lines for k in train_bp.AVG_KEYS)
+    with open(os.path.join(run, "record.txt")) as f:
+        assert "bfloat16" in f.read()
+    ckpt = torch.load(os.path.join(run, "0.ckpt"), weights_only=True)
+    assert all(v.dtype == torch.float32 for v in ckpt["model"].values())
 
 
 def test_port_imports_no_jax():

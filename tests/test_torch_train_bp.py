@@ -1,7 +1,8 @@
 """The port's BP training (vaeplay_torch.train) against the JAX package's, on
 the CPU at f32: the gradients of both passes of the two-pass step, a
 3-iteration loss trajectory through Adam, the learning-rate schedule, and
-checkpoint save, restore and resume."""
+checkpoint save, restore and resume; and in bf16, an iteration against the
+port's f32 one and the JAX package's bf16 step."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,9 @@ from vaeplay_tpu.train.steps_bp import _pt_loss, make_bp_train_step
 
 IMG, B, LR = 64, 2, 1e-3
 GRAD_TOL = 1e-4  # of each tensor's largest |gradient|, plus 1e-4 relative
+# bf16 losses against f32 and against the JAX package's bf16 step: its
+# budget (tests/test_bf16_families.py:22-29), 5% + 0.05
+BF16_REL, BF16_ABS = 0.05, 0.05
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -142,6 +146,35 @@ def test_three_iteration_trajectory_matches_jax(jax_pair):
             np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=tol, atol=tol,
                                        err_msg=f"iteration {it}: {k}")
     assert state.step == int(jstate.step) == 6
+
+
+def test_bf16_iteration_within_the_jax_budget(jax_pair):
+    """One two-pass iteration under bf16 autocast from the same weights and
+    batch as an f32 one and as the JAX package's bf16 step
+    (make_bp_train_step(compute_dtype=bfloat16)): the seven losses finite
+    and within 5% + 0.05 of both; the weights and Adam's moments stay f32."""
+    model, params = jax_pair
+    batch = _batch(seed=40)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        port = _port(params)
+        state, m = torch_steps.make_bp_train_step(port, dtype)(
+            TrainState.create(port, LR), *map(torch.from_numpy, batch))
+        out[dtype] = {k: float(v) for k, v in m.items()}
+    jstate = JaxTrainState.create(model.apply, jax.tree_util.tree_map(jnp.asarray, params),
+                                  None, torch_adam(LR))
+    _, jm = make_bp_train_step(model, compute_dtype=jnp.bfloat16)(
+        jstate, *map(jnp.asarray, batch))
+    assert out[torch.float32] != out[torch.bfloat16]
+    for k in torch_steps.METRIC_KEYS:
+        got = out[torch.bfloat16][k]
+        assert np.isfinite(got), k
+        for want in (out[torch.float32][k], float(jm[k])):
+            assert abs(got - want) <= BF16_REL * abs(want) + BF16_ABS, (k, got, want)
+    for name, p in state.model.named_parameters():
+        assert p.dtype == p.grad.dtype == torch.float32, name
+    for s in state.optimizer.state.values():
+        assert s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.float32
 
 
 def test_lr_schedule_matches_the_jax_cli():

@@ -3,11 +3,13 @@ reference train_BP.py).
 
     python -m vaeplay_torch.cli.train_bp --gpu 0
     python -m vaeplay_torch.cli.train_bp --path DATA --epoch 4 --gpu 0
+    python -m vaeplay_torch.cli.train_bp --dtype bfloat16 --gpu 0
     python -m vaeplay_torch.cli.train_bp --resume logs/BP/<timestamp> --epoch 8 --gpu 0
 
 Defaults match the reference (train_BP.py:131-145): 512 px, batch 8, 1 epoch
 x 500 iterations, Adam 1e-3 with StepLR(2, 0.1), which is applied per
-optimizer step, two per iteration. Runs on `cuda:<--gpu>`; `--device cpu`
+optimizer step, two per iteration. `--dtype bfloat16` runs both passes under
+bf16 autocast with f32 state (utils/amp.py). Runs on `cuda:<--gpu>`; `--device cpu`
 runs on the CPU (it raises without a card otherwise). Weights start from the
 port's seeded init (`--seed`). Without `--path` it trains on the synthetic
 emit-line dataset. Each run writes record.txt, metrics.jsonl and one
@@ -31,6 +33,7 @@ from vaeplay_torch.train.checkpoint import (Checkpointer, make_run_dir, restore_
 from vaeplay_torch.train.metrics import accumulating, fetch_averages
 from vaeplay_torch.train.state import TrainState, step_lr_every_two_epochs
 from vaeplay_torch.train.steps_bp import make_bp_train_step
+from vaeplay_torch.utils.amp import resolve_dtype
 from vaeplay_torch.utils.metrics_log import MetricsLogger
 
 AVG_KEYS = ("loss_cx", "loss_cy", "loss_rest", "trig_loss", "param_loss")
@@ -60,13 +63,13 @@ def main(argv=None) -> str:
     parser.add_argument("--seed", type=int, dest="seed", default=0)
     parser.add_argument("--dtype", type=str, dest="dtype", default="float32",
                         choices=("float32", "f32", "bfloat16", "bf16"),
-                        help="compute dtype; only float32 is ported")
+                        help="compute dtype of the forward and backward (bfloat16: bf16 "
+                             "autocast); parameters, optimizer state and losses stay f32")
     parser.add_argument("--resume", type=str, dest="resume", default=None,
                         help="run dir of a previous checkpoint to resume from")
     args = parser.parse_args(argv)
-    if args.dtype in ("bfloat16", "bf16"):
-        raise NotImplementedError("--dtype bfloat16 is not ported yet: the port trains in float32")
     device = resolve_device(args.gpu, args.device)
+    cdtype = resolve_dtype(args.dtype)
 
     stamp = datetime.now().strftime("%Y%m%d-%H%M%S")
     args.res_output = make_run_dir(args.res_output, "BP", stamp)
@@ -83,7 +86,7 @@ def main(argv=None) -> str:
         state, tag = restore_state(args.resume, state)
         start_epoch = tag + 1
         print(f"resumed epoch {tag} from {args.resume}")
-    astep = accumulating(make_bp_train_step(model))
+    astep = accumulating(make_bp_train_step(model, cdtype))
     ckpt = Checkpointer(args.model_output)
     mlog = MetricsLogger(args.model_output)
 

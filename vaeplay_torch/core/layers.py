@@ -1,5 +1,5 @@
 """Shared layer library -- port of vaeplay_tpu/core/layers.py (the parts BP,
-BE, BC and BCP use).
+BE, BC, BCP, BE_font and Style_GAN use).
 
 NCHW activations and torch weight layouts, with the reference's state_dict
 key names (reference models/blocks.py), so that
@@ -11,6 +11,8 @@ vaeplay_tpu/models/torch_convert.py reads a port state_dict unchanged:
                                        the parameter-free InstanceNorm2d;
                                        relu / lrelu(0.02) / tanh / sigmoid
   DenseBlock          blocks.py:36-50  `fc.0.weight` [`fc.0.bias`]; lrelu slope 0.2
+  SCSEBlock           blocks.py:52-65  `cSE.{1,3}` (the channel squeeze's two
+                                       1x1 convs), `sSE.0` (the spatial one)
   SelfAttentionBlock  blocks.py:67-95  SAGAN; `q`, `k`, `v` are 1x1 ConvBlocks
                                        with the default ReLU, `gamma` starts at 0
   PointSelfAttentionBlock              SelfAttentionBlock over a point set
@@ -22,7 +24,9 @@ vaeplay_tpu/models/torch_convert.py reads a port state_dict unchanged:
 
 The JAX package's SmallChannelConv3x3S1 and its space_to_depth layout exist
 only for the TPU's 128-lane channel axis; the same canonical 3x3 kernel is a
-plain ConvBlock here (models/be.py's predictor).
+plain ConvBlock here (models/be.py's predictor, models/style_gan.py's head).
+Its ConvTransposeBlock is a plain nn.ConvTranspose2d with a bias: the JAX
+block flips the torch kernel it stores itself.
 """
 
 from typing import Optional
@@ -95,6 +99,27 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_activation(self.fc(x), self.activate, lrelu_slope=0.2)
+
+
+class SCSEBlock(nn.Module):
+    """Concurrent spatial and channel squeeze-excite (reference
+    blocks.py:52-65): x * cSE(x) + x * sSE(x), where cSE is a global average
+    pool, a 1x1 conv to C / reduction, ReLU, a 1x1 conv back to C and a
+    sigmoid, and sSE a 1x1 conv to one channel and a sigmoid."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cSE = nn.Sequential(nn.AdaptiveAvgPool2d(1),
+                                 nn.Conv2d(channels, channels // reduction, 1), nn.ReLU(),
+                                 nn.Conv2d(channels // reduction, channels, 1), nn.Sigmoid())
+        self.sSE = nn.Sequential(nn.Conv2d(channels, 1, 1), nn.Sigmoid())
+        for conv in (self.cSE[1], self.cSE[3], self.sSE[0]):
+            vinit.conv_kaiming_(conv.weight, generator)
+            vinit.zeros_(conv.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.cSE(x) + x * self.sSE(x)
 
 
 class SelfAttentionBlock(nn.Module):

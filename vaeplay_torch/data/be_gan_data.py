@@ -276,10 +276,11 @@ class BEGanStyleDataset:
         bimg, _ = decode_layer_mask(np.asarray(mask))
         return img, bimg[..., None], it["label"]
 
-    def epoch_batches(self, batch_size: int, seed: int = 0) -> Iterator[dict]:
+    def epoch_batches(self, batch_size: int, seed: int = 0, workers: int = 0) -> Iterator[dict]:
+        """One epoch in a seeded order, a last partial batch dropped; workers
+        > 0 loads on a thread pool, with the same batches."""
         order = np.random.default_rng(seed).permutation(len(self))
-        for i in range(0, (len(self) // batch_size) * batch_size, batch_size):
-            items = [self.load(j) for j in order[i : i + batch_size]]
+        for items in batched_loads(self.load, order, batch_size, workers):
             imgs, bimgs, labels = zip(*items)
             yield {
                 "imgs": np.stack(imgs), "bimgs": np.stack(bimgs),

@@ -4,7 +4,8 @@ The inverse of vaeplay_tpu/models/torch_convert.py's BP, VAE-GAN, BE,
 BE_GAN, BC, BCP and BE_font mappings (`bp_from_torch`, `vaegan_from_torch`,
 `be_from_torch`, `be_gan_from_torch`, `be_gan_disc_from_torch`,
 `bc_from_torch`, `bcp_from_torch`, `bcp_disc_from_torch`,
-`be_font_from_torch`, `be_font_disc_from_torch`, and for the backbone
+`be_font_from_torch`, `be_font_disc_from_torch`, `style_encoder_from_torch`,
+`style_generator_from_torch`, `style_discriminator_from_torch`, and for the backbone
 vaeplay_tpu/models/backbone.py's `convert_torchvision_state_dict`),
 for trees given as nested mappings of numpy arrays (for example
 `jax.device_get(variables["params"])`). It imports neither JAX nor the JAX
@@ -469,4 +470,78 @@ def be_font_disc_state_dict_from_jax(params: Mapping,
         _flat_map_linear(sd, f"{name}.cls_convs.0", p["fc0"], 1024)
         for i in (1, 2):
             _linblock(sd, f"{name}.cls_convs.{i}", p[f"fc{i}"])
+    return sd
+
+
+def _conv_with_bias(sd: Dict, prefix: str, p: Mapping) -> None:
+    """A plain conv's {kernel, bias} -> `{prefix}.weight`, `{prefix}.bias`."""
+    sd[f"{prefix}.weight"] = _t(_conv(p["kernel"]))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(_convT(p["kernel"]))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _levels(params: Mapping) -> int:
+    """The number of stride-2 levels c1..cn of a Style_GAN encoder or
+    discriminator tree."""
+    return sum(1 for k in params if k[1:].isdigit() and k != "c0")
+
+
+def style_encoder_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/style_gan.StyleEncoder params -> state_dict of the port's
+    StyleEncoder; the inverse of torch_convert.style_encoder_from_torch. The
+    levels and widths come from the arrays; fc_mu and fc_logvar read a 1 x 1
+    map, whose NHWC and NCHW flattens agree (the port's model asserts the
+    1 x 1)."""
+    sd: Dict[str, torch.Tensor] = {}
+    n = _levels(params)
+    for i in range(n + 1):
+        _convblock(sd, f"convs.{i}", params[f"c{i}"])
+    _convblock(sd, f"convs.{n + 1}", params["c_extra0"])
+    _convblock(sd, f"convs.{n + 2}", params["c_extra1"])
+    _linblock(sd, "fc_mu", params["fc_mu"])
+    _linblock(sd, "fc_logvar", params["fc_logvar"])
+    return sd
+
+
+def style_generator_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/style_gan.Generator params -> state_dict of the port's
+    Generator; the inverse of torch_convert.style_generator_from_torch. The
+    s2d head's final_c{0,1,2} hold the canonical (3, 3, C, F) kernels:
+    final.{1,2,3}'s convs."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(("fc0", "fc1", "fc_out")):
+        _linblock(sd, f"mlp.model.{i}", params["mlp"][name])
+    for name in ("conv1", "conv2", "down1", "down2", "down3", "down4"):
+        for branch in ("conv_1", "conv_2"):
+            _convblock(sd, f"{name}.{branch}", params[name][branch])
+    for i in (1, 2, 3):
+        _convblock(sd, f"skip{i}", params[f"skip{i}"])
+        up = params[f"up{i}"]
+        _conv_transpose(sd, f"up{i}.up_convs.0", up["up"])
+        _convblock(sd, f"up{i}.cat_convs.0", up["cat"])
+        for j, scse in ((1, "scse0"), (2, "scse1")):
+            for torch_name, jax_name in (("cSE.1", "cse_reduce"), ("cSE.3", "cse_expand"),
+                                         ("sSE.0", "sse")):
+                _conv_with_bias(sd, f"up{i}.cat_convs.{j}.{torch_name}", up[scse][jax_name])
+    _conv_transpose(sd, "final.0", params["final_up"])
+    for i in range(3):
+        _conv_with_bias(sd, f"final.{i + 1}.conv.0", params[f"final_c{i}"])
+    return sd
+
+
+def style_discriminator_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX models/style_gan.Discriminator params -> state_dict of the port's
+    Discriminator; the inverse of torch_convert.style_discriminator_from_torch.
+    Its heads end on 1 x 1 maps: no flatten to permute. Style_GAN has no
+    BatchNorm, so there are no running statistics."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(_levels(params) + 1):
+        _convblock(sd, f"convs.{i}", params[f"c{i}"])
+    for head in ("adv", "aux"):
+        for i in range(2):
+            _convblock(sd, f"{head}_convs.{i}", params[f"{head}{i}"])
     return sd

@@ -15,9 +15,10 @@ from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
-from vaeplay_torch.train.state import FontState, GanState, GroupedTrainState, TrainState
+from vaeplay_torch.train.state import (FontState, GanState, GroupedTrainState, StyleGanState,
+                                       TrainState)
 
-State = Union[TrainState, GroupedTrainState, GanState, FontState]
+State = Union[TrainState, GroupedTrainState, GanState, FontState, StyleGanState]
 
 SUFFIX = ".ckpt"
 

@@ -19,6 +19,9 @@
                      generator, `style` over its style encoder only (the
                      same tensors, a second Adam), `d` over the
                      discriminator.
+  StyleGanState      Style_GAN's three optimizers (the JAX package's
+                     steps_style_gan.StyleGanState): `e` over the encoder,
+                     `g` over the generator, `d` over the discriminator.
   GroupedTrainState  one optimizer per top-level submodule (the VAE-GAN's
                      four RMSprops), the JAX package's `grouped_transform`.
                      The reference's retained backwards accumulate into
@@ -181,6 +184,29 @@ class FontState:
         """Strict, as TrainState.load_state_dict."""
         self.g.load_state_dict(sd["g"])
         self.style.load_state_dict(sd["style"])
+        self.d.load_state_dict(sd["d"])
+
+
+@dataclass
+class StyleGanState:
+    """Style_GAN's train states `e`, `g` and `d`, each with Adam(lr, (0.9,
+    0.999), eps 1e-8). Saved and restored whole, under the keys e, g and d."""
+
+    e: TrainState
+    g: TrainState
+    d: TrainState
+
+    @classmethod
+    def create(cls, e: nn.Module, g: nn.Module, d: nn.Module, lr: float) -> "StyleGanState":
+        return cls(TrainState.create(e, lr), TrainState.create(g, lr), TrainState.create(d, lr))
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"e": self.e.state_dict(), "g": self.g.state_dict(), "d": self.d.state_dict()}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Strict, as TrainState.load_state_dict."""
+        self.e.load_state_dict(sd["e"])
+        self.g.load_state_dict(sd["g"])
         self.d.load_state_dict(sd["d"])
 
 

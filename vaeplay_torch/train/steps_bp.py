@@ -13,6 +13,11 @@ Gradients are cleared with `zero_grad(set_to_none=False)`: in pass 2 the
 encoder and the ellipse predictor get zero gradients, and Adam still steps
 them on their decayed moments, as optax does in the JAX step. With
 `set_to_none=True` (torch's default) Adam would skip them instead.
+
+With compute_dtype bfloat16 both passes run the model under bf16 autocast
+(utils/amp.py) and its outputs are widened to f32 before the losses; pass
+2's ground-truth ellipse params stay f32, as the model's coordinate math
+does (models/bp.py). Parameters, Adam state and losses stay f32.
 """
 
 from typing import Callable, Dict, Tuple
@@ -22,6 +27,7 @@ import torch
 from vaeplay_torch.models.bp import ComposeNet
 from vaeplay_torch.ops import losses as L
 from vaeplay_torch.train.state import TrainState
+from vaeplay_torch.utils.amp import autocast
 
 METRIC_KEYS = ("loss_cx", "loss_cy", "loss_rest", "trig_loss", "param_loss",
                "pos_trig_loss", "pos_param_loss")
@@ -32,10 +38,16 @@ def _pt_loss(preds: Dict[str, torch.Tensor], p2_targets: torch.Tensor) -> Dict[s
                              preds["sample_infos"][..., :5], p2_targets)
 
 
+def _f32(preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.float() for k, v in preds.items()}
+
+
 def loss_phase1(model: ComposeNet, imgs: torch.Tensor, p1_targets: torch.Tensor,
-                p2_targets: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                p2_targets: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Pass 1's loss (the full model) and its five parts."""
-    preds = model(imgs)
+    with autocast(imgs.device, compute_dtype):
+        preds = _f32(model(imgs))
     el = L.ellipse_param_loss(preds["ellipse_params"], p1_targets)
     pt = _pt_loss(preds, p2_targets)
     total = el["loss_cx"] + el["loss_cy"] + el["loss_rest"] + pt["trig_loss"] + pt["param_loss"]
@@ -43,10 +55,13 @@ def loss_phase1(model: ComposeNet, imgs: torch.Tensor, p1_targets: torch.Tensor,
 
 
 def loss_phase2(model: ComposeNet, imgs: torch.Tensor, p1_scaled: torch.Tensor,
-                p2_targets: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                p2_targets: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Pass 2's loss (teacher-forced stage 2, params at x10 scale) and its
     two parts."""
-    pt = _pt_loss(model.emit_line_only(imgs, p1_scaled), p2_targets)
+    with autocast(imgs.device, compute_dtype):
+        preds = _f32(model.emit_line_only(imgs, p1_scaled))
+    pt = _pt_loss(preds, p2_targets)
     return pt["trig_loss"] + pt["param_loss"], {"pos_trig_loss": pt["trig_loss"],
                                                 "pos_param_loss": pt["param_loss"]}
 
@@ -57,7 +72,8 @@ def _descend(state: TrainState, loss: torch.Tensor) -> None:
     state.apply_gradients()
 
 
-def make_bp_train_step(model: ComposeNet) -> Callable:
+def make_bp_train_step(model: ComposeNet,
+                       compute_dtype: torch.dtype = torch.float32) -> Callable:
     """(state, imgs, p1_targets, p2_targets) -> (state, metrics), updating
     state (whose model is `model`) in place.
 
@@ -65,13 +81,15 @@ def make_bp_train_step(model: ComposeNet) -> Callable:
     p1_targets: (B, 5) normalized ellipse params; p2_targets: (B, 720, 6)
     per-sample-point [trigger, x, y, dx, dy, length]; all f32 on the model's
     device. metrics: the seven losses as detached 0-d tensors on the device.
+    compute_dtype bfloat16 runs both passes under bf16 autocast.
     """
 
     def train_step(state: TrainState, imgs: torch.Tensor, p1_targets: torch.Tensor,
                    p2_targets: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        total, m1 = loss_phase1(model, imgs, p1_targets, p2_targets)
+        total, m1 = loss_phase1(model, imgs, p1_targets, p2_targets, compute_dtype)
         _descend(state, total)
-        total, m2 = loss_phase2(model, imgs, L.value_scaled(p1_targets), p2_targets)
+        total, m2 = loss_phase2(model, imgs, L.value_scaled(p1_targets), p2_targets,
+                                compute_dtype)
         _descend(state, total)
         metrics = {**m1, **m2}
         return state, {k: metrics[k].detach() for k in METRIC_KEYS}
