@@ -209,9 +209,35 @@ Phases, in order; each raises on failure and nothing is caught:
               losses and the weights each Adam stepped (plus Adam's slope
               times the gradients' difference), in f64 the losses and the
               gradients of the net each phase steps.
+27. bc-bridge -- BC's two-program bridge (train/steps_bc.py: the mask step,
+              BridgeTracer; cli/train_bc.py:run_epoch) at 256 px, batch 32,
+              256 points, full width: one sync step at stride 1 against one
+              in-forward step from the same state and batch (TF32 off:
+              identical contours, the losses, weights and BatchNorm buffers
+              within phase 17's f32 bound), epochs of 4 steps in sync and
+              overlap at stride 4 (finite losses, 6 launches a train step,
+              none in a mask step), the host ms a step of the in-forward
+              path, sync and overlap over epochs of 6, and the share of the
+              stride-4 trace the caller did not wait for; then
+              pipeline_bc_batches over 4 batches of 8 against the
+              sequential loop (equal outputs) and both times.
+28. mesh    -- train_vae (256 px, batch 128, bf16), train_bc (256 px, batch
+              32) and train_bcp --point_attention (512 px, 2048 points,
+              batch 16) with --mesh 1x1, 2 iterations each, over a world of
+              one rank on nccl, each beside the run without --mesh from the
+              same seed: the backend, the checkpoints' keys and shapes, the
+              first logged losses and the kernel launches the same.
+29. ring    -- the ring attention's block update and its backward
+              (parallel/ring_attention.py) over 4 key/value blocks in one
+              process at BCP's 4096-point cap (16, 4096, 32, 260), f32, TF32
+              off, against the plain attention and the kernel, and their
+              times; ring_self_attention at world 1 through autograd.
+              (Phase 2 holds the kernel at that shape too: both layouts,
+              gradients, the plain backward's peak memory, the kernel,
+              plain and library times.)
 The attention kernel is on no path of phases 7-14, 25 and 26: its launch
-count must not move there. Phases 15-16, 18-19, 21-22 and 24 are driven with
-the count set to 0 before them.
+count must not move there. Phases 15-16, 18-19, 21-22, 24, 27 and 28 are
+driven with the count set to 0 before them.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. It exits
@@ -399,6 +425,21 @@ SG_SPLIT = (SG_BATCH // 2, SG_BATCH // 2)
 # phase 26 on the CPU as well: 64 px, z 512, batch 4, full width;
 # BE_PARITY_TOL's bounds
 SG_PARITY = dict(img=64, batch=4, z=512, lr=1e-4)
+
+
+# phase 2 at BCP's 4096-point cap (the model's, networks_BCP.py:71) at
+# train_bcp's batch; phase 29 holds the ring's block update at the same shape
+BCP_CAP = (BCP_TRAIN_BATCH, 4096, 32, 260)
+# phase 27: BC's bridge at 256 px, batch 32, f32; epochs of BRIDGE_EPOCH steps
+# in sync and overlap, and each host time a step the median of BRIDGE_TIMED
+# epochs of BRIDGE_STEPS steps
+BRIDGE_EPOCH, BRIDGE_TIMED, BRIDGE_STEPS = 4, 3, 6
+# phase 28: --mesh 1x1 trainer runs of MESH_ITERATIONS iterations over a
+# world of one rank; the first logged losses against the same run without
+# --mesh (the same kernels on the same inputs) within MESH_LOSS_RTOL
+MESH_ITERATIONS = 2
+MESH_LOSS_RTOL = 1e-6
+RING_BLOCKS = 4  # phase 29: key/value blocks of the ring, in one process
 
 
 def gpu_line() -> str:
@@ -2379,7 +2420,8 @@ def plain_attention():
     from vaeplay_torch.ops import attention
 
     saved = layers.spatial_self_attention
-    layers.spatial_self_attention = attention.reference_attention
+    layers.spatial_self_attention = lambda q, k, v, ring=None: attention.reference_attention(
+        q, k, v)
     try:
         yield
     finally:
@@ -3827,6 +3869,398 @@ def phase_style_gan_parity() -> None:
                                       if k.endswith("up_convs.0.bias") else k))
 
 
+def phase_kernels_bcp_cap(gpu: str) -> dict:
+    """Phase 2 at BCP's 4096-point cap (B 16, N 4096, Dk 32, Dv 260): the
+    kernel against the plain version in both layouts, f32; the Function's
+    gradients in both layouts; the plain backward's time and its peak memory
+    above its inputs (its N x N f32 buffers are 1 GiB each); the kernel,
+    plain and library times. Returns the kernel line's bcp4096_* keys. Phase
+    29's ring is held at the same shape."""
+    from vaeplay_torch.ops import attention
+
+    out = {}
+    for layout in ("n", "c"):
+        e = _check_case(BCP_CAP, torch.float32, layout, 1.0, seed=450)
+        if layout == "c":
+            out["bcp4096_max_abs_err"] = e
+    for layout in ("c", "n"):
+        _grad_check(BCP_CAP, layout, 1.0, seed=460)
+    ms, plain_ms, library_ms = _forward_times(BCP_CAP, "c")
+    bound_ms, bound_by, flops = _forward_bound(BCP_CAP)
+    q, k, v = _qkv(BCP_CAP, torch.float32, seed=0, layout="c")
+    g = _qkv(BCP_CAP, torch.float32, seed=1000, layout="c")[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    attention.attention_backward(q, k, v, g)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=5)
+    print(f"[kernels] BCP cap B,N,Dk,Dv={BCP_CAP} f32, channel-major, on {gpu}: kernel_ms "
+          f"{ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f}, bound_ms "
+          f"{bound_ms:.4f} ({bound_by}: {TF32_PASSES} x {flops / 1e9:.2f} GFLOP at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), {bound_ms / ms:.1%} of its bound; "
+          f"attention_backward_ms {bwd_ms:.4f}, its peak memory {peak:.2f} GiB above its inputs")
+    out.update(bcp4096_shape=list(BCP_CAP), bcp4096_ms=ms, bcp4096_plain_ms=plain_ms,
+               bcp4096_bound_ms=bound_ms, bcp4096_bound_by=bound_by,
+               bcp4096_library_ms=library_ms, bcp4096_backward_ms=bwd_ms,
+               bcp4096_backward_peak_gib=peak)
+    return out
+
+
+def _bc_bridge_batches(n: int, batch: int, seed: int, dev) -> list:
+    from vaeplay_torch.cli.train_bc import device_batch
+    from vaeplay_torch.data.bc_data import SyntheticBCDataset
+
+    ds = SyntheticBCDataset(img_size=BC_IMG, max_points=BC_POINTS, data_size=n * batch,
+                            seed=seed)
+    return [device_batch(b, dev) for b in ds.epoch_batches(batch)]
+
+
+def _bc_bridge_epoch_ms(state, astep, batches, bridge, overlap) -> float:
+    """Host ms a step of one run_epoch over `batches` (bridge None: the
+    in-forward trace), from dispatch to the last step's synchronize."""
+    from vaeplay_torch.cli.train_bc import run_epoch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, acc, cnt = run_epoch(astep, state, batches, bridge, overlap)
+    torch.cuda.synchronize()
+    if cnt != len(batches) or not all(math.isfinite(float(v)) for v in acc.values()):
+        raise AssertionError(f"an epoch of {len(batches)} steps logged {cnt}: {acc}")
+    return (time.perf_counter() - t) * 1e3 / len(batches)
+
+
+def phase_bc_bridge(gpu: str) -> int:
+    """BC's two-program bridge at 256 px, batch 32, 256 points, full width,
+    f32 (TF32 off for the first part): one sync step at stride 1 and one
+    in-forward step from the same state and batch (identical contours; the
+    losses and every buffer and updated weight within BE_PARITY_TOL's f32
+    bound, Adam's slope on the weights); then epochs of BRIDGE_EPOCH steps
+    in sync and overlap at stride 4 (finite losses, no launch in a mask
+    step, BC_PER_FORWARD in each train step) and the host ms a step (median
+    of BRIDGE_TIMED epochs of BRIDGE_STEPS after a warm-up) of the
+    in-forward path, sync and overlap, with the share of the trace the
+    caller does not wait for; then
+    pipeline_bc_batches over 4 batches of 8 in eval mode against the
+    sequential loop of the same three stages (equal outputs) and both
+    times. Returns the kernel launches of the epochs and steps."""
+    import numpy as np
+
+    from vaeplay_torch.eval.serve import pipeline_bc_batches
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.train.metrics import accumulating
+    from vaeplay_torch.train.state import frozen_backbone_adam, running_stats_untouched
+    from vaeplay_torch.train.steps_bc import (METRIC_KEYS, BridgeTracer, make_bc_mask_step,
+                                              make_bc_train_step)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    launches = attention.flash_attention.launches
+    base = random_bc_model(11).to(dev).train()
+    batch = _bc_bridge_batches(1, BC_TRAIN_BATCH, 5, dev)[0]
+    with strict_f32():
+        twin = copy.deepcopy(base)
+        s_fwd = frozen_backbone_adam(base, 1e-4)
+        with torch.no_grad(), running_stats_untouched(base):
+            traced = base(batch[0])
+        _, m_fwd = make_bc_train_step(base)(s_fwd, *batch)
+        s_br = frozen_backbone_adam(twin, 1e-4)
+        tracer = BridgeTracer(BC_IMG, 1, BC_POINTS)
+        before = attention.flash_attention.launches
+        packed = make_bc_mask_step(twin, 1)(s_br, batch[0])
+        pts, counts = tracer.submit(packed).result()
+        if attention.flash_attention.launches != before:
+            raise AssertionError("the mask step launched the attention kernel")
+        _, m_br = make_bc_train_step(twin)(s_br, *batch, (torch.from_numpy(pts).to(dev),
+                                                          torch.from_numpy(counts).to(dev)))
+        same = (np.array_equal(pts, traced["contours"].cpu().numpy())
+                and np.array_equal(counts, traced["contour_counts"].cpu().numpy()))
+        print(f"[bc-bridge] sync stride 1 vs in-forward, f32: contours "
+              f"{'identical' if same else 'DIFFER'} (counts {counts.tolist()[:8]}...)")
+        if not same:
+            raise AssertionError("the bridge's contours differ from the in-forward trace's")
+        ref_t = {f"weight {k}": p.detach() for k, p in base.named_parameters()}
+        ref_t.update({f"grad {k}": p.grad for k, p in base.named_parameters()
+                      if p.grad is not None})
+        got_t = {f"weight {k}": p.detach() for k, p in twin.named_parameters()}
+        got_t.update({f"grad {k}": p.grad for k, p in twin.named_parameters()
+                      if p.grad is not None})
+        ref_t = {k: v for k, v in ref_t.items() if k.startswith("grad") or
+                 "grad" + k[len("weight"):] in ref_t}
+        got_t = {k: got_t[k] for k in ref_t}
+        for k, t in base.named_buffers():
+            if t.is_floating_point():
+                ref_t[f"buffer {k}"], got_t[f"buffer {k}"] = t, dict(twin.named_buffers())[k]
+        _hold_step("bc-bridge", "sync stride-1 step vs the in-forward step", (m_fwd, ref_t),
+                   (m_br, got_t), torch.float32, 1e-4)
+        worst_buf = max(_worst(got_t[k], ref_t[k], BE_PARITY_TOL[torch.float32])
+                        for k in ref_t if k.startswith("buffer"))
+        if worst_buf > 1:
+            raise AssertionError(f"the bridge step's BatchNorm buffers differ ({worst_buf:.2e})")
+        del twin, s_br, s_fwd, traced, ref_t, got_t
+    state = frozen_backbone_adam(base, 1e-4)
+    astep = accumulating(make_bc_train_step(base))
+    bridge = (make_bc_mask_step(base, 4), BridgeTracer(BC_IMG, 4, BC_POINTS))
+    for mode in ("sync", "overlap"):
+        before = attention.flash_attention.launches
+        ms = _bc_bridge_epoch_ms(state, astep, _bc_bridge_batches(BRIDGE_EPOCH, BC_TRAIN_BATCH,
+                                                                  6, dev),
+                                 bridge, mode == "overlap")
+        n = attention.flash_attention.launches - before
+        print(f"[bc-bridge] {mode} epoch of {BRIDGE_EPOCH} at stride 4: finite losses, {n} kernel "
+              f"launches, {ms:.2f} ms a step (host clock, first epoch)")
+        if n != BC_PER_FORWARD * BRIDGE_EPOCH:
+            raise AssertionError(f"{mode}: {n} launches in {BRIDGE_EPOCH} steps")
+    host = _bc_bridge_batches(BRIDGE_STEPS + 1, BC_TRAIN_BATCH, 7, dev)
+    waits = []
+
+    class Waited:  # the tracer, the caller's wait on each trace's result timed
+        def submit(self, packed):
+            fut = bridge[1].submit(packed)
+            result = fut.result
+
+            def timed():
+                t = time.perf_counter()
+                out = result()
+                waits.append(time.perf_counter() - t)
+                return out
+
+            fut.result = timed
+            return fut
+
+    times, hidden = {}, {}
+    for mode, br, overlap in (("in-forward", None, False), ("sync", bridge, False),
+                              ("overlap", bridge, True)):
+        timed_br = None if br is None else (br[0], Waited())
+        _bc_bridge_epoch_ms(state, astep, host[:2], timed_br, overlap)  # warm-up
+        runs = []
+        for _ in range(BRIDGE_TIMED):
+            waits.clear()
+            traced = bridge[1].trace_seconds
+            runs.append(_bc_bridge_epoch_ms(state, astep, host[1:], timed_br, overlap))
+            if br is not None:  # the share of the trace the caller did not wait for
+                hidden.setdefault(mode, []).append(
+                    1 - sum(waits) / (bridge[1].trace_seconds - traced))
+        times[mode] = sorted(runs)[len(runs) // 2]
+    packed = bridge[0](state, host[0][0])
+    trace_ms = []
+    for _ in range(BRIDGE_TIMED):
+        t = time.perf_counter()
+        bridge[1].trace(packed)
+        trace_ms.append((time.perf_counter() - t) * 1e3)
+    tr = sorted(trace_ms)[len(trace_ms) // 2]
+    med = {m: sorted(v)[len(v) // 2] for m, v in hidden.items()}
+    print(f"[bc-bridge] host ms a step, median of {BRIDGE_TIMED} epochs of {BRIDGE_STEPS} steps "
+          f"after a warm-up (batch {BC_TRAIN_BATCH}, {BC_IMG} px, f32 at PyTorch's defaults, on "
+          f"{gpu}): in-forward {times['in-forward']:.2f}, bridge sync {times['sync']:.2f}, "
+          f"bridge overlap {times['overlap']:.2f}; the stride-4 packed copy and trace "
+          f"{tr:.2f} ms a batch; of the trace, the caller did not wait for {med['sync']:.0%} "
+          f"in sync and {med['overlap']:.0%} in overlap (1 - its waits on the traces over the "
+          f"traces' host time, median of {BRIDGE_TIMED}); (sync - overlap) / trace "
+          f"{(times['sync'] - times['overlap']) / tr:.0%}")
+    base.eval()
+    xs = [b[0][:8] for b in host[:4]]
+    tracer1 = BridgeTracer(BC_IMG, 1, BC_POINTS)
+
+    def refine(x, pts, counts):
+        return base(x, contours=(torch.from_numpy(pts).to(dev), torch.from_numpy(counts).to(dev)))
+
+    def sequential():
+        return [(x, refine(x, *tracer1.trace(base.mask_bits(x)))) for x in xs]
+
+    def pipelined():
+        return list(pipeline_bc_batches(base.mask_bits, tracer1.submit, refine, xs))
+
+    with torch.no_grad():
+        seq, pipe = sequential(), pipelined()
+        for (xa, a), (xb, b) in zip(seq, pipe):
+            if xa is not xb or sorted(a) != sorted(b) or not all(
+                    torch.equal(a[k], b[k]) for k in a):
+                raise AssertionError("pipeline_bc_batches' outputs differ from the sequential "
+                                     "loop's")
+        serve = {}
+        for name, run in (("sequential", sequential), ("pipelined", pipelined)):
+            runs = []
+            for _ in range(BRIDGE_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t) * 1e3)
+            serve[name] = sorted(runs)[len(runs) // 2]
+    print(f"[bc-bridge] pipeline_bc_batches over 4 batches of 8 (eval, stride 1): outputs equal "
+          f"to the sequential loop's; sequential {serve['sequential']:.2f} ms, pipelined "
+          f"{serve['pipelined']:.2f} ms (median of {BRIDGE_TIMED}, host clock, on {gpu})")
+    bridge[1].close()
+    tracer1.close()
+    tracer.close()
+    del base, state, astep
+    torch.cuda.empty_cache()
+    return attention.flash_attention.launches - launches
+
+
+def _first_line(run: str) -> dict:
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return json.loads(f.readline())
+
+
+def _same_layout(a: str, b: str) -> None:
+    """Two checkpoints of the same keys, shapes and dtypes (nested)."""
+    def layout(sd):
+        if isinstance(sd, dict):
+            return {k: layout(v) for k, v in sd.items()}
+        if isinstance(sd, list):
+            return [layout(v) for v in sd]
+        return (tuple(sd.shape), sd.dtype) if torch.is_tensor(sd) else type(sd).__name__
+
+    la, lb = (layout(torch.load(p, map_location="cpu", mmap=True, weights_only=True))
+              for p in (a, b))
+    if la != lb:
+        raise AssertionError(f"{b}'s keys or shapes differ from {a}'s")
+
+
+def phase_mesh(tmp: str, gpu: str) -> int:
+    """--mesh 1x1 through train_vae (256 px, batch 128, bf16), train_bc (256
+    px, batch 32) and train_bcp --point_attention (512 px, 2048 points, batch
+    16), MESH_ITERATIONS iterations each, over a world of one rank on nccl,
+    each beside the same run without --mesh from the same seed: the
+    backend, the checkpoint's keys and shapes, the first logged losses and
+    the kernel launches must be the same. Returns the mesh runs' launches."""
+    import torch.distributed as dist
+
+    from vaeplay_torch.cli import train_bc, train_bcp, train_vae
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.parallel import mesh as M
+
+    seen = []
+    real_session = M.mesh_session
+
+    @contextlib.contextmanager
+    def watched(spec, device):
+        with real_session(spec, device) as (mesh, dev):
+            if mesh is not None:
+                seen.append((dist.get_backend(), dist.get_world_size(), str(dev)))
+            yield mesh, dev
+
+    n = MESH_ITERATIONS
+    runs = {
+        "train_vae": (train_vae, train_vae.AVG_KEYS, [
+            "--img_size", str(VAE_IMG), "--batchsize", str(VAE_BATCH), "--zdim", str(VAE_Z),
+            "--data_size", str(n * VAE_BATCH), "--dtype", "bfloat16"], 0),
+        "train_bc": (train_bc, ("loss_edge", "loss_mask", "loss_regress"), [
+            "--img_size", str(BC_IMG), "--max_points", str(BC_POINTS), "--batchsize",
+            str(BC_TRAIN_BATCH), "--iterations", str(n)], BC_PER_FORWARD),
+        "train_bcp": (train_bcp, ("loss_class", "loss_total_regress", "d_adv_real",
+                                  "g_adv_loss"), [
+            "--img_size", str(BCP_IMG), "--max_points", str(BCP_POINTS), "--batchsize",
+            str(BCP_TRAIN_BATCH), "--iterations", str(n), "--point_attention"],
+            BCP_PER_FORWARD),
+    }
+    mesh_launches = 0
+    for name, (cli, keys, args, per_step) in runs.items():
+        out = {}
+        for label, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+            before = attention.flash_attention.launches
+            t = time.perf_counter()
+            cli.mesh_session = watched
+            try:
+                run = cli.main(["--gpu", "0", "--epoch", "1", "--viz_freq", "1",
+                                "--res_output", os.path.join(tmp, f"{name}_{label}_res"),
+                                "--model_output", os.path.join(tmp, f"{name}_{label}"),
+                                *args, *extra])
+            finally:
+                cli.mesh_session = real_session
+            launched = attention.flash_attention.launches - before
+            out[label] = (run, _first_line(run), launched)
+            print(f"[mesh] {name} {' '.join(extra) or '(no --mesh)'}: {n} iterations in "
+                  f"{time.perf_counter() - t:.1f} s, {launched} kernel launches")
+            if launched != per_step * n:
+                raise AssertionError(f"{name} {label}: {launched} launches in {n} iterations")
+        if dist.is_initialized():
+            raise AssertionError(f"{name} --mesh 1x1 left its process group up")
+        (run_p, line_p, _), (run_m, line_m, launched) = out["plain"], out["mesh"]
+        mesh_launches += launched
+        _same_layout(os.path.join(run_p, "0.ckpt"), os.path.join(run_m, "0.ckpt"))
+        diff = max(abs(line_m[k] - line_p[k]) / max(abs(line_p[k]), 1e-30) for k in keys)
+        print(f"[mesh] {name} --mesh 1x1 over {seen[-1][0]} (world {seen[-1][1]}, "
+              f"{seen[-1][2]}): checkpoint keys and shapes as without --mesh; first logged "
+              + " ".join(f"{k}={line_m[k]:.6f}/{line_p[k]:.6f}" for k in keys)
+              + f" (mesh/plain), largest relative difference {diff:.2e}")
+        if seen[-1][:2] != ("nccl", 1) or diff > MESH_LOSS_RTOL:
+            raise AssertionError(f"{name} --mesh 1x1 differs from the run without --mesh")
+        for run in (run_p, run_m):
+            shutil.rmtree(run)
+    print(f"[mesh] three --mesh 1x1 trainers over nccl on {gpu}")
+    return mesh_launches
+
+
+def phase_ring(gpu: str) -> None:
+    """The ring's block update (parallel/ring_attention.py:_ring_step) over
+    RING_BLOCKS key/value blocks in one process at BCP's cap (16, 4096, 32,
+    260), f32, TF32 off: the output against the plain attention and the
+    kernel (TOL), and the ring backward's block gradients (_ring_grad_step)
+    against attention_backward (GRAD_TOL); their times. Then
+    ring_self_attention in a world of one rank (nccl) through autograd
+    against the plain version, and RingRouting inactive on it."""
+    from vaeplay_torch.ops import attention
+    from vaeplay_torch.ops.attention import RingRouting
+    from vaeplay_torch.parallel import mesh as M
+    from vaeplay_torch.parallel import ring_attention as R
+
+    b, n, dk, dv = BCP_CAP
+    q, k, v = _qkv(BCP_CAP, torch.float32, seed=900, layout="c")
+    g = _qkv(BCP_CAP, torch.float32, seed=901, layout="c")[2]
+    qc, kb, vb = q.contiguous(), k.chunk(RING_BLOCKS, 1), v.chunk(RING_BLOCKS, 1)
+    kb, vb = [t.contiguous() for t in kb], [t.contiguous() for t in vb]
+
+    def forward():
+        m = torch.full((b, n), R._NEG_INF, device="cuda")
+        l, acc = torch.zeros(b, n, device="cuda"), torch.zeros(b, n, dv, device="cuda")
+        for kk, vv in zip(kb, vb):
+            m, l, acc = R._ring_step(qc, kk, vv, m, l, acc)
+        return acc / l[..., None], m + torch.log(l)
+
+    out, lse = forward()
+    delta = (g * out).sum(-1)
+    gc = g.contiguous()
+
+    def backward():
+        parts = [R._ring_grad_step(qc, kk, vv, gc, lse, delta) for kk, vv in zip(kb, vb)]
+        return (sum(p[0] for p in parts), torch.cat([p[1] for p in parts], 1),
+                torch.cat([p[2] for p in parts], 1))
+
+    ref = attention.reference_attention(q, k, v)
+    kern = attention.spatial_self_attention(q, k, v)
+    e_ref, e_kern = _worst(out, ref, TOL[torch.float32]), _worst(out, kern, TOL[torch.float32])
+    grads = backward()
+    e_grad = max(_worst(a, w, GRAD_TOL) for a, w in zip(grads, attention.attention_backward(
+        q, k, v, g)))
+    fwd_ms, bwd_ms = cuda_ms(forward, iters=5), cuda_ms(backward, iters=5)
+    print(f"[ring] _ring_step over {RING_BLOCKS} blocks at B,N,Dk,Dv={BCP_CAP} f32 (TF32 off), "
+          f"one process, on {gpu}: output at {e_ref:.3f} of TOL against the plain version and "
+          f"{e_kern:.3f} against the kernel; gradients at {e_grad:.3f} of GRAD_TOL against "
+          f"attention_backward; forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+          f"(torch.bmm, no hand-written kernel)")
+    if max(e_ref, e_kern, e_grad) > 1:
+        raise AssertionError("the ring's block update disagrees with the plain attention")
+    with M.mesh_session("1x1", torch.device("cuda", 0)) as (mesh, _):
+        qs, ks, vs = (t[:2, :1024].detach().requires_grad_() for t in (q, k, v))
+        got = R.ring_self_attention(qs, ks, vs, mesh)
+        got.backward(g[:2, :1024])
+        qr, kr, vr = (t[:2, :1024].detach().requires_grad_() for t in (q, k, v))
+        attention.reference_attention(qr, kr, vr).backward(g[:2, :1024])
+        e = max([_worst(got.detach(), attention.reference_attention(qr, kr, vr).detach(),
+                        TOL[torch.float32])]
+                + [_worst(a.grad, w.grad, GRAD_TOL) for a, w in ((qs, qr), (ks, kr), (vs, vr))])
+        active = RingRouting(mesh, min_n=1024).active(4096)
+        print(f"[ring] ring_self_attention at world 1 ({mesh.size(1)} model rank, nccl) at "
+              f"(2, 1024, {dk}, {dv}): output and gradients at {e:.3f} of their bounds; "
+              f"RingRouting active at N 4096: {active}")
+        if e > 1 or active:
+            raise AssertionError("ring_self_attention at world 1 disagrees with the plain version")
+
+
 def profile_only(gpu: str) -> None:
     """Phase 3's profile alone, at the same weights and batch."""
     from vaeplay_torch.cli import test_bp
@@ -3869,6 +4303,7 @@ def main(argv) -> int:
         kernel.update(phase_kernels_bcp(gpu))
         kernel.update(phase_kernels_be_font(gpu))
         kernel.update(phase_kernels_bp_bf16(gpu))
+        kernel.update(phase_kernels_bcp_cap(gpu))
     stamp("phases 1-2")
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
@@ -3915,6 +4350,13 @@ def main(argv) -> int:
         if attention.flash_attention.launches != before:
             raise AssertionError("a Style_GAN phase launched the attention kernel")
         stamp("phase 25")
+        attention.flash_attention.launches = 0
+        kernel["bridge_launches"] = phase_bc_bridge(gpu)
+        stamp("phase 27")
+        attention.flash_attention.launches = 0
+        kernel["mesh_launches"] = phase_mesh(tmp, gpu)
+        kernel["launches"] += kernel["bridge_launches"] + kernel["mesh_launches"]
+        stamp("phase 28")
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
@@ -3933,6 +4375,8 @@ def main(argv) -> int:
         if attention.flash_attention.launches != before:
             raise AssertionError("the Style_GAN parity step launched the attention kernel")
         stamp("phase 26")
+        phase_ring(gpu)
+        stamp("phase 29")
     print(gpu)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -322,10 +322,10 @@ def test_point_attention_block_matches_jax_and_keeps_the_kernel_layout(monkeypat
     port.load_state_dict(sd)
     seen = []
 
-    def spy(q, k, v):
+    def spy(q, k, v, ring=None):
         seen.append((attention._tma_operand(k) is k, attention._tma_operand(v) is v,
                      q.stride(1), tuple(v.shape)))
-        return attention.spatial_self_attention(q, k, v)
+        return attention.spatial_self_attention(q, k, v, ring=ring)
 
     from vaeplay_torch.core import layers as TLayers
     monkeypatch.setattr(TLayers, "spatial_self_attention", spy)

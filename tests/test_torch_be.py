@@ -160,7 +160,7 @@ def test_running_statistics_match_jax(jax_model):
     """After one training forward (each BatchNorm updates once):
     running_mean as JAX's within 1e-5; running_var with the batch
     variance's n / (n - 1) factor taken out (torch updates it with the
-    unbiased variance, flax with the biased one; ROADMAP §4). torch's
+    unbiased variance, flax with the biased one; ROADMAP queue 3). torch's
     momentum 0.1 is flax's 0.9: new = 0.9 old + 0.1 batch."""
     model, params, stats, consts, template = jax_model
     x = _batch(2)[0]

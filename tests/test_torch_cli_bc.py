@@ -14,6 +14,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_dist_workers as W
 from vaeplay_torch.cli import test_bc, train_bc
 from vaeplay_torch.models import bc
 
@@ -151,7 +152,7 @@ def test_folder_data_on_both_clis(slim, tmp_path):
 
 
 def test_mesh_and_no_cuda_raise(slim, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match=r"mesh 4x2 != 1 devices: .*torchrun --nproc_per_node 8"):
         _train(tmp_path, "mesh", "--mesh", "4x2")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -159,3 +160,41 @@ def test_mesh_and_no_cuda_raise(slim, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_bc.main(["--img_size", str(IMG), "--iterations", "1",
                        "--res_output", str(tmp_path), "--model_output", str(tmp_path)])
+
+
+def test_mesh_1x2_runs_the_bridge_with_sharded_weights(slim, tmp_path):
+    """--mesh 1x2 over a 2-rank gloo world: FSDP2 shards the weights and
+    Adam state over the two model ranks, and the trainer takes the bridge
+    (sync, stride 1, the in-forward trace's contours); the first logged
+    losses are a one-rank run's, the checkpoint has its keys and shapes,
+    and a one-rank --resume reads it; a 1x2 --resume of the one-rank run
+    logs the losses of its one-rank resume."""
+    args = ["--device", "cpu", "--img_size", str(IMG), "--batchsize", str(BATCH),
+            "--max_points", str(MP), "--iterations", "2", "--viz_freq", "1", "--epoch", "1",
+            "--res_output", str(tmp_path / "mesh" / "results"),
+            "--model_output", str(tmp_path / "mesh" / "logs"),
+            "--mesh", "1x2", "--bridge", "sync", "--bridge_stride", "1"]
+    runs = W.run_world(W.cli_run, 2, tmp_path, "train_bc", args,
+                       {"backbone_layers": (1, 1, 1, 1), "backbone_width": 16})
+    assert runs[0] == runs[1]
+    one = _train(tmp_path, "one", "--viz_freq", "1", "--epoch", "1")
+    mesh_lines, one_lines = _lines(runs[0]), _lines(one)
+    assert [r["step"] for r in mesh_lines] == [r["step"] for r in one_lines] == [1, 2]
+    for k in train_bc.METRIC_KEYS:
+        assert math.isclose(mesh_lines[0][k], one_lines[0][k], rel_tol=1e-5), k
+    saved = torch.load(os.path.join(runs[0], "0.ckpt"), weights_only=True)
+    want = torch.load(os.path.join(one, "0.ckpt"), weights_only=True)
+    assert {k: t.shape for k, t in saved["model"].items()} == {
+        k: t.shape for k, t in want["model"].items()}
+    assert saved["optimizer"]["state"].keys() == want["optimizer"]["state"].keys()
+    resumed = _train(tmp_path, "resumed", "--resume", runs[0], "--epoch", "2")
+    assert [r["epoch"] for r in _lines(resumed)] == [1]
+    # and a 1x2 mesh resumes the one-rank run: its Adam state sharded alike
+    again = _train(tmp_path, "again", "--viz_freq", "1", "--resume", one, "--epoch", "2")
+    args[args.index(str(tmp_path / "mesh" / "logs"))] = str(tmp_path / "mesh2" / "logs")
+    runs = W.run_world(W.cli_run, 2, tmp_path, "train_bc", args + ["--resume", one, "--epoch", "2"],
+                       {"backbone_layers": (1, 1, 1, 1), "backbone_width": 16})
+    got, want = _lines(runs[0]), _lines(again)
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [1, 1]
+    for k in train_bc.METRIC_KEYS:
+        assert math.isclose(got[-1][k], want[-1][k], rel_tol=1e-4), k

@@ -14,6 +14,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_dist_workers as W
 from vaeplay_torch.cli import test_bcp, train_bcp
 from vaeplay_torch.models import bcp
 from vaeplay_torch.train.steps_bcp import METRIC_KEYS
@@ -186,7 +187,7 @@ def test_folder_data_on_both_clis(slim, tmp_path):
 
 
 def test_mesh_and_no_cuda_raise(slim, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match=r"mesh 4x2 != 1 devices: .*torchrun --nproc_per_node 8"):
         _train(tmp_path, "mesh", "--mesh", "4x2")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -194,3 +195,48 @@ def test_mesh_and_no_cuda_raise(slim, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_bcp.main(["--img_size", str(IMG), "--iterations", "1",
                         "--res_output", str(tmp_path), "--model_output", str(tmp_path)])
+
+
+def test_mesh_1x2_point_attention_rings(slim, tmp_path):
+    """--mesh 1x2 --point_attention over a 2-rank gloo world: the point
+    attention runs as a ring over the two model ranks (max_points divides
+    by 2), and the first logged losses are a one-rank run's; the
+    checkpoint has its keys and shapes."""
+    args = ["--device", "cpu", "--img_size", str(IMG), "--batchsize", str(BATCH),
+            "--max_points", str(MP), "--iterations", "2", "--viz_freq", "1",
+            "--res_output", str(tmp_path / "mesh" / "results"),
+            "--model_output", str(tmp_path / "mesh" / "logs"),
+            "--mesh", "1x2", "--point_attention"]
+    runs = W.run_world(W.cli_run, 2, tmp_path, "train_bcp", args,
+                       {"encoder_blocks": 2, "encoder_out_size": 16})
+    assert runs[0] == runs[1]
+    one = _train(tmp_path, "one", "--viz_freq", "1", "--point_attention")
+    mesh_lines, one_lines = _lines(runs[0]), _lines(one)
+    assert [r["step"] for r in mesh_lines] == [r["step"] for r in one_lines] == [1, 2]
+    for k in train_bcp.METRIC_KEYS:
+        assert math.isclose(mesh_lines[0][k], one_lines[0][k], rel_tol=1e-5, abs_tol=1e-7), k
+    saved = torch.load(os.path.join(runs[0], "0.ckpt"), weights_only=True)
+    want = torch.load(os.path.join(one, "0.ckpt"), weights_only=True)
+    for net in ("g", "d"):
+        assert {k: t.shape for k, t in saved[net]["model"].items()} == {
+            k: t.shape for k, t in want[net]["model"].items()}
+
+
+def test_ring_routing_rule(capsys):
+    """The JAX trainer's rule: a ring only with --point_attention on M > 1
+    model ranks and max_points divisible by M, with min_n = min(1024,
+    max_points); otherwise None, said so when M > 1."""
+    assert train_bcp.ring_routing(None, 2048, True) is None
+
+    class Mesh:  # a 1 x 3 mesh's face, as RingRouting reads it
+        mesh_dim_names = ("data", "model")
+
+        @staticmethod
+        def size(dim):
+            return (1, 3)[dim]
+
+    assert train_bcp.ring_routing(Mesh, 2048, False) is None
+    assert train_bcp.ring_routing(Mesh, 2048, True) is None
+    assert "NOT active" in capsys.readouterr().out
+    ring = train_bcp.ring_routing(Mesh, 96, True)
+    assert ring is not None and ring.min_n == 96 and ring.active(96)

@@ -1,7 +1,8 @@
 """The port's circle VAE-GAN trainer CLI (vaeplay_torch.cli.train_vae) on the
 CPU: the run-dir layout, the PNG grid, metrics.jsonl and checkpoints, a
-resume, the disk dataset mode in bf16, the profiler trace, and its refusals
-(--mesh, no card without --device cpu)."""
+resume, the disk dataset mode in bf16, the profiler trace, a two-rank
+--mesh 2x1 run that a one-rank run resumes, and its refusals (a mesh the
+launched world cannot hold, no card without --device cpu)."""
 
 import json
 import math
@@ -12,6 +13,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_dist_workers as W
 from vaeplay_torch.cli import train_vae
 from vaeplay_torch.data.circles import CircleDataset, write_circle_dataset
 
@@ -99,9 +101,36 @@ def test_disk_mode_in_bf16_with_remat_and_a_trace(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 15"):
+    with pytest.raises(ValueError, match=r"mesh 4x2 != 1 devices: .*torchrun --nproc_per_node 8"):
         _train(tmp_path, "mesh", "--mesh", "4x2")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vae.main(["--img_size", str(IMG), "--res_output", str(tmp_path / "r"),
                         "--model_output", str(tmp_path / "m")])
+
+
+def test_two_rank_mesh_run_resumes_on_one_rank(tmp_path):
+    """--mesh 2x1 over a 2-rank gloo world: rank 0 writes the run, whose
+    first logged losses are a one-rank run's (the global batch's BatchNorm
+    statistics, noise and sums); its checkpoint has a one-rank run's keys
+    and shapes, and a one-rank --resume reads it."""
+    args = ["--device", "cpu", "--img_size", str(IMG), "--zdim", "16", "--batchsize",
+            str(BATCH), "--data_size", "8", "--viz_freq", "1", "--epoch", "1",
+            "--res_output", str(tmp_path / "mesh" / "results"),
+            "--model_output", str(tmp_path / "mesh" / "logs"), "--mesh", "2x1"]
+    runs = W.run_world(W.cli_run, 2, tmp_path, "train_vae", args)
+    assert runs[0] == runs[1]
+    run = runs[0]
+    assert sorted(os.listdir(run)) == ["0.ckpt", "metrics.jsonl"]
+    one = _train(tmp_path, "one")
+    mesh_lines, one_lines = _lines(run), _lines(one)
+    assert [r["step"] for r in mesh_lines] == [r["step"] for r in one_lines] == [1, 2]
+    for k in train_vae.AVG_KEYS:
+        assert math.isclose(mesh_lines[0][k], one_lines[0][k], rel_tol=1e-4, abs_tol=1e-5), k
+    saved = torch.load(os.path.join(run, "0.ckpt"), weights_only=True)
+    want = torch.load(os.path.join(one, "0.ckpt"), weights_only=True)
+    assert saved.keys() == want.keys()
+    assert {k: t.shape for k, t in saved["model"].items()} == {
+        k: t.shape for k, t in want["model"].items()}
+    resumed = _train(tmp_path, "resumed", "--resume", run, "--epoch", "2")
+    assert [r["epoch"] for r in _lines(resumed)] == [1, 1]

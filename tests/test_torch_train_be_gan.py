@@ -176,7 +176,7 @@ def jax_f64_phases(jax_init):
 
 class BiasedRunningVar:
     """torch updates running_var with the unbiased batch variance, flax with
-    the biased one (ROADMAP §3). Forward pre-hooks on every train-mode
+    the biased one (ROADMAP queue 3). Forward pre-hooks on every train-mode
     BatchNorm2d accumulate, with the norm's momentum, the difference var /
     (n - 1) of each update, so that running_var - corr[name] is flax's."""
 

@@ -117,7 +117,7 @@ def test_running_statistics_match_jax(jax_model):
     means, f32 summation order apart: 1e-5); running_var with the batch
     variance's n/(n-1) factor taken out. torch
     (the reference and the port) updates it with the unbiased variance,
-    flax with the biased one (ROADMAP §4)."""
+    flax with the biased one (ROADMAP queue 3)."""
     model, params, stats, _ = jax_model
     x, eps, z_p = _inputs(2)
     _, mut = model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=True,

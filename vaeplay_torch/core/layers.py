@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vaeplay_torch.core import init as vinit
-from vaeplay_torch.ops.attention import spatial_self_attention
+from vaeplay_torch.ops.attention import RingRouting, spatial_self_attention
 
 
 def apply_activation(x: torch.Tensor, activate: Optional[str], lrelu_slope: float) -> torch.Tensor:
@@ -130,10 +130,13 @@ class SelfAttentionBlock(nn.Module):
     kernel for a tensor on the card. q, k and v reach it as (B, H*W, C')
     transpose views of the NCHW maps, with no copy; on the card the result
     is the transpose view of a contiguous (B, C, H*W), so the reshape back to
-    NCHW is free too."""
+    NCHW is free too. `ring` (ops.attention.RingRouting) routes the attention
+    through the ring over a mesh axis where it is active."""
 
-    def __init__(self, in_channels: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, in_channels: int, generator: Optional[torch.Generator] = None,
+                 ring: Optional[RingRouting] = None):
         super().__init__()
+        self.ring = ring
         cq = max(in_channels // 8, 1)
         self.q = ConvBlock(in_channels, cq, 1, generator=generator)
         self.k = ConvBlock(in_channels, cq, 1, generator=generator)
@@ -146,8 +149,8 @@ class SelfAttentionBlock(nn.Module):
         def positions(t):  # (B, C', H, W) -> (B, H*W, C') view, position stride 1
             return t.reshape(b, t.shape[1], h * w).transpose(1, 2)
 
-        out = spatial_self_attention(positions(self.q(x)), positions(self.k(x)),
-                                     positions(self.v(x)))
+        qkv = positions(self.q(x)), positions(self.k(x)), positions(self.v(x))
+        out = spatial_self_attention(*qkv, ring=self.ring)
         out = out.transpose(1, 2).reshape(b, c, h, w)
         return self.gamma * out + x
 
@@ -159,7 +162,8 @@ class PointSelfAttentionBlock(SelfAttentionBlock):
     (B, N, C) (core/layers.py:355-377). Channel-major, q, k and v come out
     of the 1x1 convolutions in the layout the kernel reads with no copy, and
     on the card the result is a contiguous (B, C, N) again. Attention runs over all N
-    points, padding included, as in the JAX package: there is no key mask."""
+    points, padding included, as in the JAX package: there is no key mask.
+    `ring` as SelfAttentionBlock's (JAX core/layers.py:355-376)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x[..., None])[..., 0]

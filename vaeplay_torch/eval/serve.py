@@ -11,14 +11,16 @@ the one the sequential loop writes; only the wall time changes.
 
 The dispatch thread is a new thread, and a new thread's current CUDA device
 is device 0: the predictor it calls must select its own device
-(eval/predictor.py:on_device does). The JAX module's `pipeline_bc_batches`
-(:146-196) serves BC and comes with BC's port.
+(eval/predictor.py:on_device does).
+
+`pipeline_bc_batches` (JAX :146-196) skews BC's two device programs and the
+host contour trace between them across consecutive batches.
 """
 
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, Iterable, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -132,3 +134,46 @@ def serve_pages(predict: Callable, jobs: Sequence[PageJob], img_size: int,
         while paste_q:
             collect_paste(paste_q.popleft())
     return ServeStats(n_done, n_empty, n_failed)
+
+
+def pipeline_bc_batches(dispatch_mask: Callable, submit_trace: Callable,
+                        dispatch_refine: Callable, batches: Iterable
+                        ) -> Iterator[Tuple[object, object]]:
+    """BC served as mask program -> host contour trace -> refine program
+    (reference networks_BC.py:208-241, where the trace sits between the two
+    device passes), the stages skewed across batches so that batch i-1's
+    trace and batch i-2's output fetch overlap batch i's mask pass:
+
+        dispatch order:  mask(0) | mask(1), refine(0) | mask(2), refine(1),
+                         yield(0) | mask(3), refine(2), yield(1) | ...
+
+    Every device call stays on the caller's thread; only the packed mask's
+    copy and the trace run on the tracer's worker thread (`submit_trace`,
+    e.g. BridgeTracer.submit).
+
+      dispatch_mask:   batch -> the packed mask on the device
+      submit_trace:    packed -> Future of (pts, counts)
+      dispatch_refine: (batch, pts, counts) -> the refine output
+      batches:         iterable of model inputs
+
+    Yields (batch, refine output) in order, one batch behind the dispatch
+    front. Batches are independent, so the results are the sequential
+    loop's; only the wall time changes."""
+    tq: deque = deque()  # (batch, trace future): mask dispatched
+    rq: deque = deque()  # (batch, refine output): refine dispatched
+
+    def advance():
+        x, tf = tq.popleft()
+        pts, counts = tf.result()
+        rq.append((x, dispatch_refine(x, pts, counts)))
+
+    for x in batches:
+        tq.append((x, submit_trace(dispatch_mask(x))))
+        if len(tq) >= 2:
+            advance()
+        while len(rq) >= 2:
+            yield rq.popleft()
+    while tq:
+        advance()
+    while rq:
+        yield rq.popleft()

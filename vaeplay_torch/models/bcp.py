@@ -34,9 +34,11 @@ read a port state_dict unchanged:
 
 The JAX package's MergedTMPBlock, which evaluates both towers as one
 block-diagonal 128-channel stack to fill the TPU's 128 lanes, is not
-ported: the two towers are the reference's. Its `ring` (context-parallel
-point attention over a mesh) is not ported either. BCP has no BatchNorm,
-so train and eval mode compute the same.
+ported: the two towers are the reference's. `ring` (an
+ops.attention.RingRouting) runs the point attention as ring attention over
+a mesh's "model" ranks where it is active (JAX models/bcp.py:212-295; the
+rest of the net stays replicated). BCP has no BatchNorm, so train and eval
+mode compute the same.
 
 The per-point features are held channel-major, (B, 2C + 4, P): the point
 attention's 1x1 convolutions then give q, k and v in the layout the
@@ -52,6 +54,7 @@ import torch
 from torch import nn
 
 from vaeplay_torch.core.layers import ConvBlock, DenseBlock, PointSelfAttentionBlock, add_coords
+from vaeplay_torch.ops.attention import RingRouting
 from vaeplay_torch.ops.contour import find_contour, resample_points
 from vaeplay_torch.ops.image import grid_sample
 
@@ -123,10 +126,12 @@ class LinePredictor(nn.Module):
     """Per-point offsets (B, P, 2) and trigger probabilities (B, P) at given
     contour points. `point_attention` turns on the three attention blocks at
     the site of the reference's commented-out `batch_attention`
-    (networks_BCP.py:122-126), over all `pt_size` points."""
+    (networks_BCP.py:122-126), over all `pt_size` points, through `ring`
+    where it is active."""
 
     def __init__(self, image_size: int = 128, pt_size: int = 2048, in_channels: int = 128,
-                 point_attention: bool = False, generator: Generator = None):
+                 point_attention: bool = False, generator: Generator = None,
+                 ring: Optional[RingRouting] = None):
         super().__init__()
         self.pt_size, self.point_attention = pt_size, point_attention
         c = in_channels
@@ -143,7 +148,7 @@ class LinePredictor(nn.Module):
         d = 2 * c + 2 + NUM_CLASSES
         if point_attention:
             self.batch_attention = nn.Sequential(
-                *(PointSelfAttentionBlock(d, generator) for _ in range(3)))
+                *(PointSelfAttentionBlock(d, generator, ring) for _ in range(3)))
         self.frequency_head = nn.Sequential(DenseBlock(d, d, "lrelu", generator=generator),
                                             DenseBlock(d, d, "lrelu", generator=generator))
         self.params_pred = nn.Sequential(DenseBlock(2 * d, 2 * d, "lrelu", generator=generator),
@@ -187,13 +192,13 @@ class ComposeNet(nn.Module):
 
     def __init__(self, pt_size: int = 2048, point_attention: bool = False,
                  encoder_blocks: int = 8, encoder_out_size: int = 128,
-                 generator: Generator = None):
+                 generator: Generator = None, ring: Optional[RingRouting] = None):
         super().__init__()
         self.encoder = ContentEndoer(5, encoder_blocks, generator)
         c = self.encoder.out_channels
         self.cls_classifier = ClassPredictor(c, encoder_out_size, generator=generator)
         self.line_predictor = LinePredictor(encoder_out_size, pt_size, c, point_attention,
-                                            generator=generator)
+                                            generator=generator, ring=ring)
 
     def forward(self, x: torch.Tensor, contours: torch.Tensor,
                 counts: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -17,7 +17,7 @@ port state_dict unchanged:
 
 Every BatchNorm has torch momentum 0.9 (networks.py:16; flax's 0.1) and eps
 1e-5. Its running variance is updated with the unbiased batch variance, as
-in the reference; flax uses the biased one (ROADMAP §4).
+in the reference; flax uses the biased one (ROADMAP queue 3).
 """
 
 import math

@@ -21,10 +21,16 @@ positions), in f32 or bf16. The kernel itself reads f32 with k and v
 channel-major and 16-byte aligned rows, where the model leaves them; any
 other k or v is brought into that form with one copy, and bf16 is widened
 to f32 (exactly) and the result rounded once to bf16.
+
+`RingRouting` (the JAX module's, :150-175) sends a position axis long enough
+through the ring over a mesh's "model" ranks (parallel/ring_attention.py)
+instead: a model built with the handle consults it, one built without never
+rings.
 """
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Any, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -176,13 +182,15 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class SpatialAttention(torch.autograd.Function):
     """softmax(q kᵀ) v with the kernel's forward on a CUDA tensor, the plain
     version on a CPU tensor, and `attention_backward` on both. The forward
-    saves only q, k and v."""
+    saves only q, k and v. Under a bf16 autocast the plain version still
+    computes in f32, as the kernel does with bf16 operands."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
-            return reference_attention(q, k, v)
+            with torch.autocast("cpu", enabled=False):  # f32 products, as the kernel's
+                return reference_attention(q, k, v)
         b, n, dv = v.shape
         out = torch.empty((b, dv, n), dtype=v.dtype, device=v.device).transpose(1, 2)
         return flash_attention(q, k, v, out=out)
@@ -193,12 +201,39 @@ class SpatialAttention(torch.autograd.Function):
         return attention_backward(*ctx.saved_tensors, g)
 
 
-def spatial_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class RingRouting:
+    """The ring (context-parallel) attention handle, threaded through a
+    model's constructor down to its attention blocks (bcp.ComposeNet(ring=)):
+    there is no global routing state. When `mesh` has >= 2 ranks on `axis`
+    and the position axis N >= min_n divides by their number,
+    spatial_self_attention runs the ring over them (the JAX rule)."""
+
+    mesh: Any = None
+    axis: str = "model"
+    min_n: int = 1024
+
+    def active(self, n: int) -> bool:
+        """Whether a position axis of size n routes through the ring."""
+        if self.mesh is None or self.axis not in (self.mesh.mesh_dim_names or ()):
+            return False
+        n_dev = self.mesh.size(self.mesh.mesh_dim_names.index(self.axis))
+        return n_dev >= 2 and n >= self.min_n and n % n_dev == 0
+
+
+def spatial_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           ring: Optional[RingRouting] = None) -> torch.Tensor:
     """Unscaled softmax attention over flattened spatial (or point) positions,
     differentiable through `SpatialAttention`.
 
     q, k: (B, N, Dk); v: (B, N, Dv), each position-major or channel-major.
     Returns (B, N, Dv). A CPU tensor takes the plain version; a CUDA tensor
     takes the kernel, which writes a channel-major result: the (B, N, Dv)
-    transpose view of a contiguous (B, Dv, N)."""
+    transpose view of a contiguous (B, Dv, N). With a `ring` active for N,
+    the ring over its mesh axis runs instead (every rank of the axis holds
+    q, k and v whole) and the result is position-major."""
+    if ring is not None and ring.active(q.shape[1]):
+        from vaeplay_torch.parallel.ring_attention import replicated_ring_attention
+
+        return replicated_ring_attention(q, k, v, ring.mesh, ring.axis)
     return SpatialAttention.apply(q, k, v)

@@ -14,7 +14,10 @@ import os
 from typing import Any, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
+from vaeplay_torch.parallel.mesh import full_state_dict, is_main
 from vaeplay_torch.train.state import (FontState, GanState, GroupedTrainState, StyleGanState,
                                        TrainState)
 
@@ -81,9 +84,18 @@ def load_model_path(model_path: str) -> Any:
     return torch.load(model_path, map_location="cpu", weights_only=True)
 
 
-def save_state(ckpt: Checkpointer, tag, state: State) -> str:
-    """Save the state (model, optimizers, scheduler, step) under `tag`."""
-    return ckpt.save(tag, state.state_dict())
+def save_state(ckpt: Checkpointer, tag, state: State, mesh: Optional[DeviceMesh] = None) -> str:
+    """Save the state (model, optimizers, scheduler, step) under `tag`;
+    returns the file's path. With a mesh every rank calls it: sharded
+    tensors are gathered whole (full_state_dict, the keys of a run without a
+    mesh), rank 0 writes, and the ranks wait for the file."""
+    if mesh is None:
+        return ckpt.save(tag, state.state_dict())
+    sd = full_state_dict(state.state_dict())
+    if is_main(mesh):
+        ckpt.save(tag, sd)
+    dist.barrier()
+    return ckpt.path(tag)
 
 
 def restore_state(run_dir: str, state: State, tag=None) -> Tuple[State, int]:

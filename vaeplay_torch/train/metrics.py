@@ -10,6 +10,9 @@ every step.
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from vaeplay_torch.parallel.mesh import all_mean
 
 Sums = Dict[str, torch.Tensor]
 
@@ -31,9 +34,13 @@ def accumulating(step_fn: Callable) -> Callable:
     return call
 
 
-def fetch_averages(acc: Sums, count: int) -> Dict[str, float]:
-    """One host sync: copy the sums back together and return their means."""
+def fetch_averages(acc: Sums, count: int, mesh: Optional[DeviceMesh] = None
+                   ) -> Dict[str, float]:
+    """One host sync: copy the sums back together and return their means.
+    With a mesh every rank calls it, and the means are the global batch's
+    (each rank's sums averaged over the "data" ranks first, the JAX
+    package's fetch_averages of global arrays)."""
     keys = sorted(acc)
-    sums = torch.stack([acc[k] for k in keys]).cpu().tolist()
+    sums = all_mean(torch.stack([acc[k] for k in keys]), mesh).cpu().tolist()
     n = max(int(count), 1)
     return {k: s / n for k, s in zip(keys, sums)}

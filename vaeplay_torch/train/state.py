@@ -32,6 +32,7 @@
 Each is saved and restored whole.
 """
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Tuple
 
@@ -260,3 +261,26 @@ class GroupedTrainState:
         for k, opt in self.optimizers.items():
             opt.load_state_dict(sd["optimizers"][k])
         self.step = int(sd["step"])
+
+
+@contextlib.contextmanager
+def running_stats_untouched(model: nn.Module):
+    """Inside, every BatchNorm updates copies of its running buffers, which
+    are dropped after: a train-mode forward whose statistics updates are
+    discarded. torch.utils.checkpoint reruns the forward in the backward,
+    which would update them a second time (jax.checkpoint is functional and
+    updates nothing then; the copies keep the recompute saving the same
+    tensors as the forward, which checkpoint checks), and BC's mask step
+    discards them as the JAX mask step does."""
+    names = ("running_mean", "running_var", "num_batches_tracked")
+    norms = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    kept = [[getattr(m, n) for n in names] for m in norms]
+    for m in norms:
+        for n in names:
+            setattr(m, n, getattr(m, n).clone())
+    try:
+        yield
+    finally:
+        for m, buffers in zip(norms, kept):
+            for n, t in zip(names, buffers):
+                setattr(m, n, t)

@@ -25,12 +25,14 @@ outputs are widened to f32 first, D's sigmoid runs in f32
 F.binary_cross_entropy. Parameters, Adam state and losses stay f32.
 """
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from vaeplay_torch.models.bcp import VALUE_WEIGHT
 from vaeplay_torch.ops import losses as L
+from vaeplay_torch.parallel.mesh import data_sum, sync_grads
 from vaeplay_torch.train.state import GanState
 from vaeplay_torch.utils.amp import autocast
 
@@ -49,28 +51,39 @@ def _fake_targets(preds: Preds, pmask: torch.Tensor) -> torch.Tensor:
 
 
 def line_losses(preds: Preds, labels: torch.Tensor, points: torch.Tensor,
-                pmask: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The G phase's losses but the adversarial one (JAX steps_bcp.py:94-113)."""
+                pmask: torch.Tensor, mesh: Optional[DeviceMesh] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The G phase's losses but the adversarial one (JAX steps_bcp.py:94-113).
+    The masked means divide batch-wide sums by batch-wide counts: with a
+    mesh, both are summed over the "data" ranks (data_sum), since the ranks'
+    point counts differ; the class loss is a mean of equal slices."""
     dt = preds["target_frequency"].dtype
     valid = pmask > 0
     trig = (points[..., 4] > 0.1) & valid
     untrig = (points[..., 4] <= 0.1) & valid
     freq = preds["target_frequency"]
-    n_trig = trig.sum().clamp(min=1).to(dt)
     diff = (preds["target_pts"] - points[..., 2:4] * VALUE_WEIGHT).abs()
     key = (points[..., 5] > 0.9) & valid
+
+    def total(t):
+        return data_sum(t.sum(), mesh)
+
+    def count(mask):
+        return total(mask.to(dt)).clamp(min=1)
+
     zero = torch.zeros((), dtype=dt, device=freq.device)
     return {"loss_class": L.softmax_cross_entropy(preds["classes"], labels).mean(),
-            "loss_frequency_one": L.masked_mean((freq - 1.0).abs(), trig),
+            "loss_frequency_one": total((freq - 1.0).abs() * trig) / count(trig),
             "loss_frequency_zero": torch.where(
-                untrig.any(), (freq.abs() * untrig.to(dt)).sum() / n_trig, zero),
-            "loss_total_regress": L.masked_mean(diff, pmask[..., None]),
-            "loss_key_regress": (diff.sum(dim=-1) * key.to(dt)).sum()
-            / key.sum().clamp(min=1).to(dt)}
+                total(untrig.to(dt)) > 0, total(freq.abs() * untrig.to(dt)) / count(trig), zero),
+            "loss_total_regress": total(diff * pmask[..., None])
+            / count(pmask[..., None].expand(diff.shape)),
+            "loss_key_regress": total(diff.sum(dim=-1) * key.to(dt)) / count(key)}
 
 
 def make_bcp_train_step(g: torch.nn.Module, d: torch.nn.Module,
-                        compute_dtype: torch.dtype = torch.float32) -> Callable:
+                        compute_dtype: torch.dtype = torch.float32,
+                        mesh: Optional[DeviceMesh] = None) -> Callable:
     """(gan_state, imgs, labels, points, pmask) -> (gan_state, metrics),
     updating the GanState over g and d in place.
 
@@ -78,7 +91,12 @@ def make_bcp_train_step(g: torch.nn.Module, d: torch.nn.Module,
     pmask (B, P), on the models' device. metrics: METRIC_KEYS as detached
     0-d tensors. The parts are exposed as `.forward` (*batch -> G's outputs,
     f32, with their graph), `.d_phase` and `.g_phase` ((gan_state, preds,
-    *batch) -> (gan_state, their metrics))."""
+    *batch) -> (gan_state, their metrics)).
+
+    With a mesh, the batch is this rank's rows (shard_batch), the line
+    losses are line_losses' global ones, and each phase averages its net's
+    gradients over the ranks (sync_grads) before its update; a G built with
+    an active `ring` runs its point attention over the "model" ranks."""
 
     def widen(t: torch.Tensor) -> torch.Tensor:  # bf16 outputs -> f32 losses
         return t.float() if t.dtype == torch.bfloat16 else t
@@ -100,11 +118,12 @@ def make_bcp_train_step(g: torch.nn.Module, d: torch.nn.Module,
              "d_adv_fake": L.bce(fake, torch.zeros_like(fake)).mean()}
         gs.d.optimizer.zero_grad()
         ((m["d_adv_real"] + m["d_adv_fake"]) * 0.5).backward()
+        sync_grads(d.parameters(), mesh)
         gs.d.apply_gradients()
         return gs, {k: v.detach() for k, v in m.items()}
 
     def g_phase(gs: GanState, preds: Preds, imgs, labels, points, pmask):
-        m = line_losses(preds, labels, points, pmask)
+        m = line_losses(preds, labels, points, pmask, mesh)
         adv = run_d(imgs, _fake_targets(preds, pmask))
         m["g_adv_loss"] = L.bce(adv, torch.ones_like(adv)).mean()
         total = (m["loss_class"] + (m["loss_frequency_one"] + m["loss_frequency_zero"]) * 4.0
@@ -113,6 +132,7 @@ def make_bcp_train_step(g: torch.nn.Module, d: torch.nn.Module,
         params = [p for group in gs.g.optimizer.param_groups for p in group["params"]]
         for p, grad in zip(params, torch.autograd.grad(total, params)):
             p.grad = grad
+        sync_grads(params, mesh)
         gs.g.apply_gradients()
         return gs, {k: v.detach() for k, v in m.items()}
 

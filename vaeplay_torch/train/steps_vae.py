@@ -14,16 +14,17 @@ GroupedTrainState, make the same update. Loss composition (train.py:54-66):
 """
 
 import contextlib
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import checkpoint
 
 from vaeplay_torch.models.vae_gan import VaeGan
 from vaeplay_torch.ops import losses as L
 from vaeplay_torch.ops.geometry import encode_circle_param, render_circle_batch
-from vaeplay_torch.train.state import GroupedTrainState
+from vaeplay_torch.parallel.mesh import axis_size, data_sum, shard_batch, sync_grads
+from vaeplay_torch.train.state import GroupedTrainState, running_stats_untouched
 from vaeplay_torch.utils.amp import autocast
 
 LAMBDA_MSE = 1e-6  # train.py:15
@@ -32,50 +33,33 @@ METRIC_KEYS = ("loss_recon", "loss_encoder", "loss_decoder", "loss_discriminator
                "loss_aux", "kl", "nle")
 
 
-def vae_gan_losses(outs: Sequence[torch.Tensor], imgs: torch.Tensor,
-                   targets: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The five losses and two diagnostics from VaeGan's training outputs."""
+def vae_gan_losses(outs: Sequence[torch.Tensor], imgs: torch.Tensor, targets: torch.Tensor,
+                   mesh: Optional[DeviceMesh] = None) -> Dict[str, torch.Tensor]:
+    """The five losses and two diagnostics from VaeGan's training outputs.
+    With a mesh, this rank's rows are a slice of the global batch: the sums
+    run over the global batch (data_sum), the means are of the slice (equal
+    slices, so their mean over the ranks is the global mean)."""
     x_tilde, disc_class, disc_layer, mus, log_variances, params = outs
     b = imgs.shape[0]
     dc = disc_class[:, 0]
     pieces = L.vaegan_losses(imgs, x_tilde, disc_layer[:b], disc_layer[b:2 * b],
                              dc[:b], dc[b:2 * b], dc[2 * b:], mus, log_variances, targets, params)
-    loss_discriminator = (pieces["bce_dis_original"].sum() + pieces["bce_dis_predicted"].sum()
-                          + pieces["bce_dis_sampled"].sum())
+    loss_discriminator = data_sum(pieces["bce_dis_original"].sum() + pieces["bce_dis_predicted"].sum()
+                                  + pieces["bce_dis_sampled"].sum(), mesh)
     return {
         "loss_recon": ((imgs - x_tilde) ** 2).mean(),
-        "loss_encoder": pieces["kl"].sum() + pieces["mse"].sum(),
-        "loss_decoder": (LAMBDA_MSE * pieces["mse"]).sum() - (1.0 - LAMBDA_MSE) * loss_discriminator,
+        "loss_encoder": data_sum(pieces["kl"].sum() + pieces["mse"].sum(), mesh),
+        "loss_decoder": data_sum((LAMBDA_MSE * pieces["mse"]).sum(), mesh)
+        - (1.0 - LAMBDA_MSE) * loss_discriminator,
         "loss_discriminator": loss_discriminator,
         "loss_aux": pieces["l1_param"],
-        "kl": pieces["kl"].sum(),
+        "kl": data_sum(pieces["kl"].sum(), mesh),
         "nle": pieces["nle"].mean(),
     }
 
 
-@contextlib.contextmanager
-def _running_stats_untouched(model: nn.Module):
-    """Inside, every BatchNorm updates copies of its running buffers, which
-    are dropped after. torch.utils.checkpoint reruns the forward in the
-    backward, which would update them a second time; jax.checkpoint is
-    functional and updates nothing then. (The copies keep the recompute
-    saving the same tensors as the forward, which checkpoint checks.)"""
-    names = ("running_mean", "running_var", "num_batches_tracked")
-    norms = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
-    kept = [[getattr(m, n) for n in names] for m in norms]
-    for m in norms:
-        for n in names:
-            setattr(m, n, getattr(m, n).clone())
-    try:
-        yield
-    finally:
-        for m, buffers in zip(norms, kept):
-            for n, t in zip(names, buffers):
-                setattr(m, n, t)
-
-
 def make_train_step(model: VaeGan, compute_dtype: torch.dtype = torch.float32,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, mesh: Optional[DeviceMesh] = None) -> Callable:
     """(state, imgs, targets, generator) -> (state, metrics), updating state
     (a GroupedTrainState over `model`) in place.
 
@@ -87,7 +71,14 @@ def make_train_step(model: VaeGan, compute_dtype: torch.dtype = torch.float32,
     compute_dtype bfloat16 runs the forward and backward under bf16 autocast
     (utils/amp.py). remat=True checkpoints the whole training forward, so
     the backward recomputes the activations instead of keeping them;
-    parameters and running statistics after the step are the plain step's."""
+    parameters and running statistics after the step are the plain step's.
+
+    With a mesh, imgs and targets are this rank's rows of the global batch
+    (shard_batch): the noise is drawn for the global batch from `generator`
+    and sliced alike, the losses are vae_gan_losses' global ones, and the
+    gradients are averaged over the ranks (sync_grads) before the update;
+    the model's BatchNorms take global statistics once global_batchnorm has
+    converted them."""
 
     def forward(imgs: torch.Tensor, eps: torch.Tensor, z_p: torch.Tensor):
         with autocast(imgs.device, compute_dtype):
@@ -95,20 +86,22 @@ def make_train_step(model: VaeGan, compute_dtype: torch.dtype = torch.float32,
 
     def train_step(state: GroupedTrainState, imgs: torch.Tensor, targets: torch.Tensor,
                    generator: torch.Generator) -> Tuple[GroupedTrainState, Dict[str, torch.Tensor]]:
-        noise = model.draw_noise(imgs.shape[0], generator, imgs.device)
+        noise = shard_batch(mesh, model.draw_noise(imgs.shape[0] * axis_size(mesh, "data"),
+                                                   generator, imgs.device))
         if remat:
             outs = checkpoint(forward, imgs, *noise, use_reentrant=False,
                               context_fn=lambda: (contextlib.nullcontext(),
-                                                  _running_stats_untouched(model)))
+                                                  running_stats_untouched(model)))
         else:
             outs = forward(imgs, *noise)
         if compute_dtype == torch.bfloat16:  # losses and their reductions in f32
             outs = [o.float() for o in outs]
-        m = vae_gan_losses(outs, imgs, targets)
+        m = vae_gan_losses(outs, imgs, targets, mesh)
         total = (m["loss_recon"] + m["loss_encoder"] + m["loss_decoder"]
                  + m["loss_discriminator"] + m["loss_aux"])
         state.zero_grad()
         total.backward()
+        sync_grads(state.model.parameters(), mesh)
         state.apply_gradients()
         return state, {k: v.detach() for k, v in m.items()}
 
@@ -126,12 +119,12 @@ def circle_batch(img_size: int, raw_params: torch.Tensor) -> Tuple[torch.Tensor,
 
 def make_circle_train_step(model: VaeGan, img_size: int,
                            compute_dtype: torch.dtype = torch.float32,
-                           remat: bool = False) -> Callable:
+                           remat: bool = False, mesh: Optional[DeviceMesh] = None) -> Callable:
     """(state, raw_params, generator) -> (state, metrics): renders the batch
     and encodes the targets on the device from the (B, 3) circle params,
     then make_train_step's step; no image crosses the host->device link (the
     reference renders every circle on the CPU, datasets/dataset.py:52-56)."""
-    step = make_train_step(model, compute_dtype, remat)
+    step = make_train_step(model, compute_dtype, remat, mesh)
 
     def fused(state: GroupedTrainState, raw_params: torch.Tensor, generator: torch.Generator):
         return step(state, *circle_batch(img_size, raw_params), generator)
