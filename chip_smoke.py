@@ -5,13 +5,17 @@
 Phases, in order; each raises on failure and nothing is caught:
 
 1. build   -- compile every CUDA source of the port with nvcc.
-2. kernels -- hold each kernel against its plain PyTorch version on the card
-              (TF32 off), at the shapes of the BP path, at ragged shapes and
-              at Dk = 128, with q, k, v position-major (contiguous (B, N, C))
-              and channel-major (transpose views of (B, C, N), the layout
-              the model passes, with a channel-major result; the kernel
-              reads it with no copy), and time kernel, plain version and
-              the PyTorch library call. Then the attention under autograd:
+2. kernels -- hold each kernel (f32: csrc/flash_attention.cu; bf16:
+              csrc/flash_attention_bf16.cu, chosen by the operands' dtype)
+              against its plain PyTorch version on the card (TF32 off), at
+              the shapes of the BP path, at ragged shapes and at Dk = 128,
+              with q, k, v position-major (contiguous (B, N, C), which the
+              wrapper copies into the TMA's form) and channel-major
+              (transpose views of (B, C, N), the layout the model passes,
+              with a channel-major result; read in place by the TMA engine
+              or, where it cannot describe them, by the threads' direct
+              loads), and time kernel, plain version and the PyTorch
+              library call. Then the attention under autograd:
               the gradients of `SpatialAttention` (the kernel's forward, the
               recompute backward) against autograd through the plain
               version; at the training batch of 8, the forward and the
@@ -20,22 +24,29 @@ Phases, in order; each raises on failure and nothing is caught:
               layouts and both dtypes against the plain version, the
               gradients, and at B = 32 the kernel, plain and library times.
               And at BCP's point-attention shape (B 16 and 4, N 2048, Dk 32,
-              Dv 260) the same, whether the model's layout is copied, the
-              times at both batches and the plain backward's at B = 16.
+              Dv 260) the same, the route of the model's layout (TMA, no
+              copy), the times at both batches and the plain backward's at
+              B = 16.
               And at BE_font's embedding-block shape (B 32 and 8, N 1, Dk
               32, Dv 256), in the model's layout (channel and position
               stride both 1) and position-major, both dtypes, against the
               plain version and against v (a softmax over one key is 1);
-              the gradients with dq and dk exactly 0; whether _tma_operand
-              copies k and v; the kernel's, the copies', the plain
-              version's, the library call's and the plain backward's times.
-              And at BP's training shape with bf16 operands (B 8, N 2048,
-              Dk 90, Dv 720, the model's layout, as bf16 autocast leaves
-              them): SpatialAttention's bf16 forward and gradients against
-              autograd of the plain version in f32; the times of the kernel
-              call, of its two _tma_operand copies alone, of the plain
-              forward and backward, and of the library call in bf16, with
-              the backend it chose.
+              the gradients with dq and dk exactly 0; the route (direct, no
+              copy); the kernel's, the plain version's, the library call's
+              and the plain backward's times. (At BC's N 258 too the f32
+              kernel reads the model's k and v by the direct route, with no
+              copy.) And with bf16 operands (the bf16 kernel, bf16 wgmma):
+              at BP's training shape (B 8, N 2048, Dk 90, Dv 720, the
+              model's layout, as bf16 autocast leaves them)
+              SpatialAttention's bf16 forward and gradients against
+              autograd of the plain version in f32; then at BP's, BCP's (N
+              2048 and the 4096 cap), BC's (N 258) and BE_font's (N 1)
+              shapes in the model's layout the kernel against the plain
+              version of the same arithmetic (P rounded to bf16) and
+              against the plain version in f32, its route (TMA at N 2048
+              and 4096, direct at 258 and 1) and the bytes copied (0), and
+              the times of the kernel, the plain version and the library
+              call in bf16, with the backend it chose.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -235,12 +246,14 @@ Phases, in order; each raises on failure and nothing is caught:
               (Phase 2 holds the kernel at that shape too: both layouts,
               gradients, the plain backward's peak memory, the kernel,
               plain and library times.)
-The attention kernel is on no path of phases 7-14, 25 and 26: its launch
-count must not move there. Phases 15-16, 18-19, 21-22, 24, 27 and 28 are
-driven with the count set to 0 before them.
+The attention kernels are on no path of phases 7-14, 25 and 26: their
+launch count must not move there. Phases 3, 5, 15-16, 18-19, 21-22, 24, 27
+and 28 are driven with the counts set to 0 before them; each prints its
+launches by kernel and route ("[routes]"), and none may copy k or v.
 
 It prints the card's name and power limit, one JSON line describing the
-kernels, and as its last line {"ok": true, "device": {...}}. It exits
+two kernels (their launches on the main paths by route), and as its last
+line {"ok": true, "device": {...}}. It exits
 non-zero without a result when no CUDA device is present.
 
     python3 chip_smoke.py --profile-only
@@ -271,10 +284,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# The attention kernel's engine, its one path: TF32 tensor cores in three
-# passes (big*big + big*small + small*big), wgmma for P.V and mma.sync for the
-# scores, K and V loaded by the TMA engine.
+# The f32 attention kernel's engine: TF32 tensor cores in three passes
+# (big*big + big*small + small*big), wgmma for P.V and mma.sync for the
+# scores, K and V loaded by the TMA engine or the threads. The bf16 kernel's:
+# one pass of bf16 wgmma for both products.
 ENGINE = "wgmma m64n120k8 + mma.sync m16n8k8, tf32x3"
+ENGINE_BF16 = "wgmma m64n64k16 bf16, both products"
 TF32_PASSES = 3
 
 # (B, N, Dk, Dv) of the BP attention (models/bp.py: 2048 embedding dims as
@@ -284,9 +299,11 @@ RAGGED = [(2, 64, 4, 32), (2, 100, 8, 16), (2, 256, 16, 128), (2, 333, 5, 7),
           (2, 2049, 90, 720), (2, 2049, 5, 7)]
 DK_MAX = [(2, 300, 128, 200), (1, 2048, 128, 720)]  # the kernel's largest Dk
 # f32: the kernel and the plain version both compute in f32 and differ only in
-# summation order. bf16: both widen the inputs to f32 and round only the
-# output, so they differ by up to one bf16 rounding (2^-8 relative) plus
-# summation order.
+# summation order. bf16: both compute the scores and the sums in f32 from the
+# bf16 operands and round P to bf16 before P.V (the kernel against its key
+# tiles' running max, the plain version after normalising) and the output
+# once, so they differ by up to one bf16 rounding of each (2^-8 relative)
+# plus summation order.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # the Function's gradients against autograd of the plain version, both f32 on
 # the card: 1e-4 of each gradient's largest magnitude (ds = (dp - sum(dp *
@@ -407,10 +424,18 @@ FONT_PARITY = dict(img=64, batch=4, lr=1e-4)
 # batch 8, the full pyramid; the CLI runs an epoch of BP_BF16_ITERATIONS
 BP_BF16_SHAPE = (TRAIN_BATCH,) + BP_SHAPE[1:]  # (8, 2048, 90, 720)
 BP_BF16_ITERATIONS = 3
-# the bf16 attention's output and gradients (rounded once to bf16, computed
-# in f32) against autograd of the plain version in f32: one bf16 rounding
-# (2^-8 relative) of each element, plus summation order
+# the bf16 attention's output and gradients (the bf16 kernel, P and the
+# output rounded to bf16; the recompute backward in f32, its gradients
+# rounded to bf16) against autograd of the plain version in f32 on the same
+# bf16 values: one bf16 rounding (2^-8 relative) of P and of each element,
+# plus summation order, within 1e-2 of the largest magnitude + 1e-2 relative
 BF16_ATTENTION_TOL = (1e-2, 1e-2)
+# phase 2's bf16 kernel shapes in the model's layout, with the route each
+# takes: BP's training shape, BCP's point attention at N 2048 and its 4096
+# cap, BC's RefineNet at N 258, BE_font's embedding blocks at N 1
+BF16_SHAPES = [("BP", (8, 2048, 90, 720), "tma"), ("BCP", (16, 2048, 32, 260), "tma"),
+               ("BCP cap", (16, 4096, 32, 260), "tma"), ("BC", (32, 258, 32, 256), "direct"),
+               ("BE_font", (32, 1, 32, 256), "direct")]
 # bf16 losses against f32: the JAX package's budget (tests/test_bf16_families.py:
 # 22-29), 5% relative + 0.05
 BF16_BUDGET = (0.05, 0.05)
@@ -516,9 +541,8 @@ def _check_case(shape, dtype, layout, q_scale, seed) -> float:
     from vaeplay_torch.ops import attention
 
     q, k, v = _qkv(shape, dtype, seed, q_scale, layout)
-    if shape == BP_SHAPE and dtype == torch.float32 and layout == "c" and not (
-            attention._tma_operand(k) is k and attention._tma_operand(v) is v):
-        raise AssertionError("the model's layout at the BP shape was copied for the kernel")
+    if shape == BP_SHAPE and layout == "c" and attention.kernel_operands(k, v)[2] != "tma":
+        raise AssertionError("the model's layout at the BP shape does not take the TMA route")
     if layout == "c":
         got = attention.spatial_self_attention(q, k, v)
         if not got.transpose(1, 2).is_contiguous():
@@ -584,8 +608,26 @@ def phase_kernels(gpu: str) -> dict:
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "vaeplay_torch/ops/csrc/flash_attention.cu",
             "replaces": "vaeplay_tpu/ops/attention.py:37", "engine": ENGINE,
-            "launches": None, "max_abs_err": bp_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "launches": None, "launches_by_route": None, "max_abs_err": bp_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _model_route(shape, dtype, want: str, tag: str) -> None:
+    """The route the model's layout (channel-major) takes at `shape`: `want`,
+    with no byte copied, or a raise."""
+    from vaeplay_torch.ops import attention
+
+    q, k, v = _qkv(shape, dtype, seed=0, layout="c")
+    before = attention.flash_attention.copied_bytes
+    route = attention.kernel_operands(k, v)[2]
+    copied = attention.flash_attention.copied_bytes - before
+    print(f"[kernels] {tag} shape B,N,Dk,Dv={shape} {str(dtype)[6:]}, the model's layout: k and v "
+          f"read by the {route} route, {copied} bytes copied (position stride {k.stride(1)}, "
+          f"channel stride {k.stride(2) * k.element_size()} bytes)")
+    if route != want or copied:
+        raise AssertionError(f"{tag}: the model's layout took the {route} route, {copied} bytes "
+                             f"copied; want {want}, none")
 
 
 def _forward_times(shape, layout: str):
@@ -696,7 +738,10 @@ def phase_kernels_bc(gpu: str) -> dict:
     BC_SHAPES in both layouts and both dtypes, the Function's gradients in
     both layouts, and at B = 32 (train_bc's batch) the times of the kernel,
     the plain version and the library call, channel-major as the model
-    passes them. Returns the kernel line's BC keys."""
+    passes them (the direct route), and of the kernel on the same values
+    with rows padded for the TMA route. Returns the kernel line's BC keys."""
+    from vaeplay_torch.ops import attention
+
     err = None
     for i, shape in enumerate(BC_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -707,14 +752,27 @@ def phase_kernels_bc(gpu: str) -> dict:
         for layout in ("c", "n"):
             _grad_check(shape, layout, 1.0, seed=310 + i)
     shape = BC_SHAPES[-1]
+    _model_route(shape, torch.float32, "direct", "BC")
     ms, plain_ms, library_ms = _forward_times(shape, "c")
     bound_ms, bound_by, flops = _forward_bound(shape)
+    # the same values with rows padded to 260 positions, which the TMA takes
+    b, n, dk, dv = shape
+    q, k, v = _qkv(shape, torch.float32, seed=0, layout="c")
+    k, v = (torch.zeros(b, t.shape[2], n + 2, device="cuda")[:, :, :n].copy_(t.transpose(1, 2))
+            .transpose(1, 2) for t in (k, v))
+    res = torch.empty(b, dv, n, device="cuda").transpose(1, 2)
+    if attention.kernel_operands(k, v)[2] != "tma":
+        raise AssertionError("BC's padded k and v do not take the TMA route")
+    tma_ms = cuda_ms(lambda: attention.flash_attention(q, k, v, out=res))
+    backend = _sdpa_backend(*(t[:, None] for t in _qkv(shape, torch.float32, 0, layout="c")))
     print(f"[kernels] BC shape B,N,Dk,Dv={shape} f32, channel-major, on {gpu}: kernel_ms {ms:.4f} "
-          f"(with the copies of k and v that N = 258 needs), plain_ms {plain_ms:.4f}, "
-          f"library_ms {library_ms:.4f}, bound_ms {bound_ms:.5f} ({bound_by}: {TF32_PASSES} x "
-          f"{flops / 1e9:.3f} GFLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), "
-          f"{bound_ms / ms:.1%} of its bound")
-    return {"bc_shape": list(shape), "bc_max_abs_err": err, "bc_ms": ms, "bc_plain_ms": plain_ms,
+          f"(k and v read in place by the direct route, 0 bytes copied; by TMA, rows padded to "
+          f"{n + 2}: {tma_ms:.4f}), plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f} "
+          f"(backend {backend}), bound_ms "
+          f"{bound_ms:.5f} ({bound_by}: {TF32_PASSES} x {flops / 1e9:.3f} GFLOP at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32), {bound_ms / ms:.1%} of its bound")
+    return {"bc_shape": list(shape), "bc_max_abs_err": err, "bc_ms": ms, "bc_tma_ms": tma_ms,
+            "bc_plain_ms": plain_ms,
             "bc_bound_ms": bound_ms, "bc_bound_by": bound_by, "bc_library_ms": library_ms,
             "bc_launches": None}
 
@@ -739,11 +797,8 @@ def phase_kernels_bcp(gpu: str) -> dict:
                     out["bcp_max_abs_err" if i == 0 else "bcp_b4_max_abs_err"] = e
         for layout in ("c", "n"):
             _grad_check(shape, layout, 1.0, seed=410 + i)
+    _model_route(BCP_SHAPES[0], torch.float32, "tma", "BCP")
     q, k, v = _qkv(BCP_SHAPES[0], torch.float32, seed=0, layout="c")
-    copied = not (attention._tma_operand(k) is k and attention._tma_operand(v) is v)
-    print(f"[kernels] BCP shape f32, channel-major (the model's layout): k and v "
-          f"{'COPIED' if copied else 'read with no copy'} by _tma_operand (row stride "
-          f"{k.stride(2) * 4} bytes)")
     for key, shape in (("bcp", BCP_SHAPES[0]), ("bcp_b4", BCP_SHAPES[1])):
         ms, plain_ms, library_ms = _forward_times(shape, "c")
         bound_ms, bound_by, flops = _forward_bound(shape)
@@ -763,7 +818,7 @@ def phase_kernels_bcp(gpu: str) -> dict:
           f"{b * n * n * 4 / 2**20:.0f} MiB N x N buffers); {bwd_flops / 1e9:.2f} GFLOP, "
           f"{bwd_flops / PEAK_F32_FLOPS * 1e3:.4f} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32; "
           f"backward / forward kernel {bwd_ms / out['bcp_ms']:.2f}")
-    out.update(bcp_backward_ms=bwd_ms, bcp_copied=copied, bcp_launches=None)
+    out.update(bcp_backward_ms=bwd_ms, bcp_launches=None)
     return out
 
 
@@ -964,7 +1019,7 @@ def phase_slice(tmp: str, weights: str, gpu: str) -> int:
     from vaeplay_torch.ops import attention
 
     dev = torch.device("cuda", 0)
-    attention.flash_attention.launches = 0
+    attention.reset_counts()
     t0 = time.perf_counter()
     written = test_bp.main(["--model_path", weights, "--gpu", "0", "--img_size", "512",
                             "--batchsize", "4", "--res_output", os.path.join(tmp, "bp_test")])
@@ -1089,7 +1144,7 @@ def phase_train(tmp: str, gpu: str, timed: list) -> int:
     from vaeplay_torch.cli import test_bp, train_bp
     from vaeplay_torch.ops import attention
 
-    attention.flash_attention.launches = 0
+    attention.reset_counts()
     common = ["--gpu", "0", "--img_size", str(IMG), "--batchsize", str(TRAIN_BATCH),
               "--iterations", str(TRAIN_ITERATIONS), "--viz_freq", "2",
               "--res_output", os.path.join(tmp, "train_results")]
@@ -2923,11 +2978,11 @@ def phase_kernels_be_font(gpu: str) -> dict:
     256): the kernel against the plain version (and, printed, against v) in
     the model's layout (channel and position stride both 1) and the
     position-major one, f32 and bf16; the Function's gradients in both
-    layouts, dq and dk exactly 0; whether _tma_operand copies the model's k
-    and v; then at each batch the times of the kernel (in the model's
-    layout, copies included), the two copies alone, the plain version, the
-    library call and the plain backward. Returns the kernel line's
-    be_font_* keys (B = 32) and be_font_b8_* keys (B = 8)."""
+    layouts, dq and dk exactly 0; the route of the model's k and v (direct,
+    no copy); then at each batch the times of the kernel (in the model's
+    layout), the plain version, the library call and the plain backward.
+    Returns the kernel line's be_font_* keys (B = 32) and be_font_b8_* keys
+    (B = 8)."""
     from vaeplay_torch.ops import attention
 
     out = {}
@@ -2941,33 +2996,31 @@ def phase_kernels_be_font(gpu: str) -> dict:
         for layout in ("c", "n"):
             _grad_check(shape, layout, 1.0, seed=510 + i)
         b, n, dk, dv = shape
+        _model_route(shape, torch.float32, "direct", "BE_font")
         q, k, v = _qkv(shape, torch.float32, seed=0, layout="c")
         res = torch.empty(b, dv, n, device="cuda").transpose(1, 2)
-        copied = not (attention._tma_operand(k) is k and attention._tma_operand(v) is v)
         ms = cuda_ms(lambda: attention.flash_attention(q, k, v, out=res), iters=200)
-        copy_ms = cuda_ms(lambda: (attention._tma_operand(k), attention._tma_operand(v)),
-                          iters=200)
         plain_ms = cuda_ms(lambda: attention.reference_attention(q, k, v), iters=200)
         # the library call on the same values, position-major: its kernels
         # refuse the model's strides (channel and position stride both 1)
         q4, k4, v4 = (t[:, None] for t in _qkv(shape, torch.float32, seed=0, layout="n"))
+        backend = _sdpa_backend(q4, k4, v4)
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, scale=1.0), iters=200)
         g = _qkv(shape, torch.float32, seed=1000, layout="c")[2]
         bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=200)
         bound_ms, bound_by, flops = _forward_bound(shape)
         print(f"[kernels] BE_font shape B,N,Dk,Dv={shape} f32, the model's layout, on {gpu}: "
-              f"kernel_ms {ms:.5f} (k and v {'COPIED' if copied else 'read with no copy'} by "
-              f"_tma_operand: the two copies alone {copy_ms:.5f} ms, {copy_ms / ms:.1%}), "
-              f"plain_ms {plain_ms:.5f}, library_ms {library_ms:.5f}, attention_backward_ms "
+              f"kernel_ms {ms:.5f} (k and v read in place by the direct route, 0 bytes copied), "
+              f"plain_ms {plain_ms:.5f}, library_ms {library_ms:.5f} (backend {backend}), "
+              f"attention_backward_ms "
               f"{bwd_ms:.5f}, bound_ms {bound_ms:.7f} ({bound_by}: "
               f"{4 * b * n * (2 * dk + 2 * dv) / 1e3:.1f} kB at "
               f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {TF32_PASSES} x {flops / 1e3:.1f} kFLOP), "
               f"{bound_ms / ms:.2%} of its bound")
         out.update({f"{key}_shape": list(shape), f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
                     f"{key}_bound_ms": bound_ms, f"{key}_bound_by": bound_by,
-                    f"{key}_library_ms": library_ms, f"{key}_copy_ms": copy_ms,
-                    f"{key}_copied": copied, f"{key}_backward_ms": bwd_ms})
+                    f"{key}_library_ms": library_ms, f"{key}_backward_ms": bwd_ms})
     out["be_font_launches"] = None
     return out
 
@@ -3374,23 +3427,39 @@ def phase_be_font_parity() -> None:
 # BP in bf16: phase 2's bf16 check at the training shape and phase 24
 
 
+def _sdpa_backend(q4, k4, v4) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        choice = int(torch._fused_sdp_choice(q4, k4, v4, scale=1.0))
+        return next((m.name for m in SDPBackend.__members__.values() if int(m.value) == choice),
+                    str(choice))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
 def phase_kernels_bp_bf16(gpu: str) -> dict:
-    """Phase 2 at BP's training shape with bf16 operands (B 8, N 2048, Dk 90,
-    Dv 720, channel-major, as the 1x1 convolutions leave q, k and v under
-    bf16 autocast): SpatialAttention's forward and gradients (bf16 output,
-    bf16 gradients of the f32 recompute backward) against autograd through
-    the plain version in f32 on the same values; then the times of the
-    kernel call (the f32 widening of q and the _tma_operand copies of k and
-    v included), the two copies alone, the plain version, the plain backward
-    and the library call in bf16 (on position-major copies, with the backend
-    it chose). Returns the kernel line's bp_bf16_* keys."""
+    """Phase 2 with bf16 operands: the bf16 kernel. At BP's training shape
+    (B 8, N 2048, Dk 90, Dv 720, channel-major, as the 1x1 convolutions
+    leave q, k and v under bf16 autocast) SpatialAttention's forward and
+    gradients (bf16 output, bf16 gradients of the f32 recompute backward)
+    against autograd through the plain version in f32 on the same values,
+    and the plain backward's time. Then at each of BF16_SHAPES, in the
+    model's layout: the kernel against the plain version of the same
+    arithmetic (TOL[bf16]) and against the plain version in f32 on the same
+    values (BF16_ATTENTION_TOL), its route and the bytes copied (none), and
+    the times of the kernel, the plain version and the library call in
+    bf16 (on position-major copies, with the backend it chose) beside the
+    bf16 bound. Returns the kernels line's entry for the bf16 kernel: BP's
+    shape first, then the bp_, bcp_, bcp_cap_, bc_ and be_font_ keys."""
     from vaeplay_torch.ops import attention
 
     shape = BP_BF16_SHAPE
     b, n, dk, dv = shape
     q, k, v = _qkv(shape, torch.bfloat16, seed=600, layout="c")
     g = _qkv(shape, torch.bfloat16, seed=1600, layout="c")[2]
-    before = attention.flash_attention.launches
+    before = attention.flash_attention.routes["bfloat16/tma"]
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = attention.spatial_self_attention(qg, kg, vg)
     out.backward(g)
@@ -3398,8 +3467,10 @@ def phase_kernels_bp_bf16(gpu: str) -> dict:
     ref = attention.reference_attention(qr, kr, vr)
     ref.backward(g.float())
     torch.cuda.synchronize()
-    if attention.flash_attention.launches != before + 1 or out.dtype != torch.bfloat16:
-        raise AssertionError("the bf16 forward did not launch the kernel once with a bf16 result")
+    if (attention.flash_attention.routes["bfloat16/tma"] != before + 1
+            or out.dtype != torch.bfloat16):
+        raise AssertionError("the bf16 forward did not launch the bf16 kernel by the TMA route "
+                             "once with a bf16 result")
     held = {"output": _worst(out.detach().float(), ref.detach(), BF16_ATTENTION_TOL)}
     for name, got, want in (("dq", qg.grad, qr.grad), ("dk", kg.grad, kr.grad),
                             ("dv", vg.grad, vr.grad)):
@@ -3414,45 +3485,74 @@ def phase_kernels_bp_bf16(gpu: str) -> dict:
           f"{BF16_ATTENTION_TOL[1]:g} x |ref|); output max abs err {err:.3e}")
     if max(held.values()) > 1:
         raise AssertionError("the bf16 attention disagrees with the plain version in f32")
-
-    res = torch.empty(b, dv, n, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
-    copied = not (attention._tma_operand(k) is k and attention._tma_operand(v) is v)
-    ms = cuda_ms(lambda: attention.flash_attention(q, k, v, out=res))
-    copy_ms = cuda_ms(lambda: (attention._tma_operand(k), attention._tma_operand(v)))
-    plain_ms = cuda_ms(lambda: attention.reference_attention(q, k, v))
     bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=10)
-    q4, k4, v4 = (t.contiguous()[:, None] for t in (q, k, v))
-    try:
-        from torch.nn.attention import SDPBackend
 
-        choice = int(torch._fused_sdp_choice(q4, k4, v4, scale=1.0))
-        backend = next((m.name for m in SDPBackend.__members__.values() if int(m.value) == choice),
-                       str(choice))
-    except (AttributeError, RuntimeError, TypeError) as e:
-        backend = f"unknown ({type(e).__name__})"
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, scale=1.0))
-    bound_ms, bound_by, flops = _forward_bound(shape, torch.bfloat16)
-    copy_bytes = 2 * b * n * (dk + dv) * (2 + 4)
-    print(f"[kernels] BP bf16 shape B,N,Dk,Dv={shape}, the model's layout, on {gpu}: kernel_ms "
-          f"{ms:.4f} (k and v {'COPIED' if copied else 'read with no copy'} by _tma_operand: the "
-          f"two copies alone {copy_ms:.4f} ms, {copy_ms / ms:.1%}, {copy_bytes / 2**20:.1f} MiB "
-          f"read and written), plain_ms {plain_ms:.4f}, attention_backward_ms {bwd_ms:.4f}, "
-          f"library_ms {library_ms:.4f} (scaled_dot_product_attention bf16, position-major, "
-          f"backend {backend}), bound_ms {bound_ms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP on "
-          f"bf16 operands at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; the f32 bound "
-          f"{_forward_bound(shape)[0]:.4f} ms), "
-          f"{bound_ms / ms:.1%} of its bound; per bf16 training iteration ({PER_ITERATION} of "
-          f"each) {PER_ITERATION * ms:.2f} ms forward, {PER_ITERATION * copy_ms:.2f} ms of it "
-          f"copies, {PER_ITERATION * bwd_ms:.2f} ms plain backward")
-    return {"bp_bf16_shape": list(shape), "bp_bf16_max_abs_err": err, "bp_bf16_ms": ms,
-            "bp_bf16_copy_ms": copy_ms, "bp_bf16_copied": copied, "bp_bf16_plain_ms": plain_ms,
-            "bp_bf16_backward_ms": bwd_ms, "bp_bf16_bound_ms": bound_ms,
-            "bp_bf16_bound_by": bound_by, "bp_bf16_library_ms": library_ms,
-            "bp_bf16_sdpa_backend": backend, "bp_bf16_launches": None}
+    entry = {"name": "flash_attention_fwd_bf16", "route": "cuda",
+             "source": "vaeplay_torch/ops/csrc/flash_attention_bf16.cu",
+             "replaces": "vaeplay_tpu/ops/attention.py:37", "engine": ENGINE_BF16,
+             "launches": None, "launches_by_route": None}
+    for i, (tag, shape, want) in enumerate(BF16_SHAPES):
+        b, n, dk, dv = shape
+        key = tag.lower().replace(" ", "_")
+        q, k, v = _qkv(shape, torch.bfloat16, seed=700 + i, layout="c")
+        counts = attention.flash_attention
+        routes, copied = dict(counts.routes), counts.copied_bytes
+        got = attention.spatial_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        routes = {r: c - routes[r] for r, c in counts.routes.items() if c != routes[r]}
+        copied = counts.copied_bytes - copied
+        if routes != {f"bfloat16/{want}": 1} or copied or got.dtype != torch.bfloat16 or not (
+                got.transpose(1, 2).is_contiguous()):
+            raise AssertionError(f"{tag} bf16: routes {routes}, {copied} bytes copied, "
+                                 f"{got.dtype} {got.stride()}; want bfloat16/{want}, none")
+        ref = attention.reference_attention(q, k, v).float()
+        ref32 = attention.reference_attention(q.float(), k.float(), v.float())
+        atol, rtol = TOL[torch.bfloat16]
+        diff = (got.float() - ref).abs()
+        bad = int((diff > atol + rtol * ref.abs()).sum())
+        max_err = float(diff.max())
+        held32 = _worst(got.float(), ref32, BF16_ATTENTION_TOL)
+        against_v = (f", {float((got.float() - v.float()).abs().max()):.3e} against v"
+                     if n == 1 else "")
+        print(f"[kernels] flash_attention_fwd_bf16 {tag} B,N,Dk,Dv={shape}, the model's layout, "
+              f"{want} route, 0 bytes copied: against the plain version in bf16 max abs err "
+              f"{max_err:.3e} (atol {atol:g}, rtol {rtol:g}), {bad} outside; against the plain "
+              f"version in f32 at {held32:.3f} of the bound (atol {BF16_ATTENTION_TOL[0]:g} x "
+              f"max |ref| + rtol {BF16_ATTENTION_TOL[1]:g} x |ref|){against_v}")
+        if bad or held32 > 1 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"the bf16 kernel disagrees with the plain version at {shape}")
+        res = torch.empty(b, dv, n, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+        iters = 200 if n == 1 else 20
+        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, out=res), iters=iters)
+        plain_ms = cuda_ms(lambda: attention.reference_attention(q, k, v), iters=iters)
+        # the library call on position-major copies of the same values
+        q4, k4, v4 = (torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)[:, None]
+                      for t in (q, k, v))
+        backend = _sdpa_backend(q4, k4, v4)
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), iters=iters)
+        bound_ms, bound_by, flops = _forward_bound(shape, torch.bfloat16)
+        print(f"[kernels] flash_attention_fwd_bf16 {tag} B,N,Dk,Dv={shape}, the model's layout, "
+              f"on {gpu}: kernel_ms {ms:.5f} ({want} route, 0 bytes copied), plain_ms "
+              f"{plain_ms:.5f}, library_ms {library_ms:.5f} (scaled_dot_product_attention bf16, "
+              f"position-major, backend {backend}), bound_ms {bound_ms:.6f} ({bound_by}: "
+              f"{flops / 1e9:.4f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+              f"{2 * (2 * b * n * (dk + dv)) / 1e6:.3f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
+              f"{bound_ms / ms:.1%} of its bound, {flops / ms / 1e9:.1f} TFLOP/s"
+              + (f"; per bf16 training iteration ({PER_ITERATION} of each) "
+                 f"{PER_ITERATION * ms:.2f} ms forward, {PER_ITERATION * bwd_ms:.2f} ms plain "
+                 f"backward (attention_backward_ms {bwd_ms:.4f})" if i == 0 else ""))
+        if i == 0:
+            entry.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms, backward_ms=bwd_ms)
+        entry.update({f"{key}_shape": list(shape), f"{key}_route": want,
+                      f"{key}_max_abs_err": max_err, f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                      f"{key}_bound_ms": bound_ms, f"{key}_bound_by": bound_by,
+                      f"{key}_library_ms": library_ms, f"{key}_sdpa_backend": backend})
+    return entry
 
 
-def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> int:
+def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> tuple:
     """BP training in bf16 through the train_bp CLI at 512 px, batch 8, the
     full pyramid: an epoch of BP_BF16_ITERATIONS iterations (PER_ITERATION
     launches each), test_bp on the run dir; then a warm-up and three timed
@@ -3460,15 +3560,15 @@ def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> int:
     a profile; then one iteration in bf16 and one in f32 on the card from
     the same weights and batch, their seven losses within BF16_BUDGET and
     not all equal (a bf16 request that ran in f32 would match exactly).
-    Returns the kernel's launches over the phase's bf16 runs; the f32
-    comparison iteration's are not counted."""
+    Returns the kernels' launches over the phase's bf16 runs and their
+    counts by route; the f32 comparison iteration's are not counted."""
     from vaeplay_torch.cli import test_bp, train_bp
     from vaeplay_torch.data.bp_data import SyntheticEmitDataset
     from vaeplay_torch.ops import attention
     from vaeplay_torch.train.state import TrainState
     from vaeplay_torch.train.steps_bp import make_bp_train_step
 
-    attention.flash_attention.launches = 0
+    attention.reset_counts()
     t0 = time.perf_counter()
     run = train_bp.main(["--gpu", "0", "--img_size", str(IMG), "--batchsize", str(TRAIN_BATCH),
                          "--iterations", str(BP_BF16_ITERATIONS), "--viz_freq",
@@ -3503,7 +3603,7 @@ def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> int:
         losses[dtype] = {k: float(v) for k, v in m.items()}
         del model
         if launches is None:  # the bf16 runs end here
-            launches = attention.flash_attention.launches
+            launches = attention.flash_attention.launches, dict(attention.flash_attention.routes)
     rel, absolute = BF16_BUDGET
     worst, name = max((abs(losses[torch.bfloat16][k] - v) / (rel * abs(v) + absolute), k)
                       for k, v in losses[torch.float32].items())
@@ -4120,13 +4220,14 @@ def _same_layout(a: str, b: str) -> None:
         raise AssertionError(f"{b}'s keys or shapes differ from {a}'s")
 
 
-def phase_mesh(tmp: str, gpu: str) -> int:
+def phase_mesh(tmp: str, gpu: str) -> tuple:
     """--mesh 1x1 through train_vae (256 px, batch 128, bf16), train_bc (256
     px, batch 32) and train_bcp --point_attention (512 px, 2048 points, batch
     16), MESH_ITERATIONS iterations each, over a world of one rank on nccl,
     each beside the same run without --mesh from the same seed: the
     backend, the checkpoint's keys and shapes, the first logged losses and
-    the kernel launches must be the same. Returns the mesh runs' launches."""
+    the kernel launches must be the same. Returns the mesh runs' launches
+    and their counts by route."""
     import torch.distributed as dist
 
     from vaeplay_torch.cli import train_bc, train_bcp, train_vae
@@ -4157,11 +4258,12 @@ def phase_mesh(tmp: str, gpu: str) -> int:
             str(BCP_TRAIN_BATCH), "--iterations", str(n), "--point_attention"],
             BCP_PER_FORWARD),
     }
-    mesh_launches = 0
+    mesh_launches, mesh_routes = 0, dict.fromkeys(attention.ROUTES, 0)
     for name, (cli, keys, args, per_step) in runs.items():
         out = {}
         for label, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
             before = attention.flash_attention.launches
+            routes = dict(attention.flash_attention.routes)
             t = time.perf_counter()
             cli.mesh_session = watched
             try:
@@ -4172,6 +4274,9 @@ def phase_mesh(tmp: str, gpu: str) -> int:
             finally:
                 cli.mesh_session = real_session
             launched = attention.flash_attention.launches - before
+            if label == "mesh":
+                for r, c in attention.flash_attention.routes.items():
+                    mesh_routes[r] += c - routes[r]
             out[label] = (run, _first_line(run), launched)
             print(f"[mesh] {name} {' '.join(extra) or '(no --mesh)'}: {n} iterations in "
                   f"{time.perf_counter() - t:.1f} s, {launched} kernel launches")
@@ -4192,7 +4297,7 @@ def phase_mesh(tmp: str, gpu: str) -> int:
         for run in (run_p, run_m):
             shutil.rmtree(run)
     print(f"[mesh] three --mesh 1x1 trainers over nccl on {gpu}")
-    return mesh_launches
+    return mesh_launches, mesh_routes
 
 
 def phase_ring(gpu: str) -> None:
@@ -4302,17 +4407,33 @@ def main(argv) -> int:
         kernel.update(phase_kernels_bc(gpu))
         kernel.update(phase_kernels_bcp(gpu))
         kernel.update(phase_kernels_be_font(gpu))
-        kernel.update(phase_kernels_bp_bf16(gpu))
+        kernel_bf16 = phase_kernels_bp_bf16(gpu)
         kernel.update(phase_kernels_bcp_cap(gpu))
     stamp("phases 1-2")
+    # launches on the main paths by kernel and route; each path is driven
+    # with the counts set to 0 just before it and read just after
+    path_routes = dict.fromkeys(attention.ROUTES, 0)
+
+    def path(label: str, launches: int, routes: dict = None) -> int:
+        routes = dict(attention.flash_attention.routes) if routes is None else routes
+        if sum(routes.values()) != launches or attention.flash_attention.copied_bytes:
+            raise AssertionError(f"{label}: {launches} launches, routes {routes}, "
+                                 f"{attention.flash_attention.copied_bytes} bytes of k and v "
+                                 f"copied")
+        for r, c in routes.items():
+            path_routes[r] += c
+        print(f"[routes] {label}: " + (", ".join(f"{r} {c}" for r, c in routes.items() if c)
+                                       or "no launch") + "; no copy of k or v")
+        return launches
+
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
         weights = os.path.join(tmp, "bp_random.pt")
         random_weights(weights)
-        kernel["launches"] = phase_slice(tmp, weights, gpu)
+        path("BP inference f32 (phase 3)", phase_slice(tmp, weights, gpu))
         with strict_f32():
             phase_parity(weights)
         f32_ms = []
-        kernel["launches"] += phase_train(tmp, gpu, f32_ms)
+        path("BP training f32 (phase 5)", phase_train(tmp, gpu, f32_ms))
         stamp("phases 3-5")
         phase_vae_train(tmp, gpu)
         stamp("phase 7")
@@ -4324,39 +4445,46 @@ def main(argv) -> int:
         stamp("phases 9-10, 12-13")
         if attention.flash_attention.launches != before:
             raise AssertionError("a BE or BE_GAN phase launched the attention kernel")
-        attention.flash_attention.launches = 0
+        attention.reset_counts()
         phase_bc_infer(tmp, gpu)
         phase_bc_train(tmp, gpu)
-        kernel["bc_launches"] = attention.flash_attention.launches
-        kernel["launches"] += kernel["bc_launches"]
+        kernel["bc_launches"] = path("BC f32 and bf16 (phases 15-16)",
+                                     attention.flash_attention.launches)
         stamp("phases 15-16")
-        attention.flash_attention.launches = 0
+        attention.reset_counts()
         phase_bcp_infer(tmp, gpu)
         phase_bcp_train(tmp, gpu)
-        kernel["bcp_launches"] = attention.flash_attention.launches
-        kernel["launches"] += kernel["bcp_launches"]
+        kernel["bcp_launches"] = path("BCP f32, bf16, --point_attention (phases 18-19)",
+                                      attention.flash_attention.launches)
         stamp("phases 18-19")
-        attention.flash_attention.launches = 0
+        attention.reset_counts()
         phase_be_font_infer(tmp, gpu)
         phase_be_font_train(tmp, gpu)
-        kernel["be_font_launches"] = attention.flash_attention.launches
-        kernel["launches"] += kernel["be_font_launches"]
+        kernel["be_font_launches"] = path("BE_font f32 and bf16 (phases 21-22)",
+                                          attention.flash_attention.launches)
         stamp("phases 21-22")
-        kernel["bp_bf16_launches"] = phase_bp_bf16_train(tmp, gpu, f32_ms)
-        kernel["launches"] += kernel["bp_bf16_launches"]
+        kernel_bf16["bp_launches"] = path("BP training bf16 (phase 24)",
+                                          *phase_bp_bf16_train(tmp, gpu, f32_ms))
         stamp("phase 24")
         before = attention.flash_attention.launches
         phase_style_gan_train(tmp, gpu)
         if attention.flash_attention.launches != before:
             raise AssertionError("a Style_GAN phase launched the attention kernel")
         stamp("phase 25")
-        attention.flash_attention.launches = 0
-        kernel["bridge_launches"] = phase_bc_bridge(gpu)
+        attention.reset_counts()
+        kernel["bridge_launches"] = path("BC's bridge (phase 27)", phase_bc_bridge(gpu))
         stamp("phase 27")
-        attention.flash_attention.launches = 0
-        kernel["mesh_launches"] = phase_mesh(tmp, gpu)
-        kernel["launches"] += kernel["bridge_launches"] + kernel["mesh_launches"]
+        attention.reset_counts()
+        kernel["mesh_launches"] = path("--mesh 1x1 trainers (phase 28)", *phase_mesh(tmp, gpu))
         stamp("phase 28")
+    # each kernel's launches on the main paths, by route
+    for entry, dtype in ((kernel, "float32"), (kernel_bf16, "bfloat16")):
+        entry["launches_by_route"] = {r: path_routes[f"{dtype}/{r}"] for r in ("tma", "direct")}
+        entry["launches"] = sum(entry["launches_by_route"].values())
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']} was launched no time on the main paths")
+    print(f"[routes] the main paths in all: " + ", ".join(f"{r} {c}"
+                                                         for r, c in path_routes.items()))
     with strict_f32():
         phase_train_parity()
         phase_vae_parity()
@@ -4378,7 +4506,7 @@ def main(argv) -> int:
         phase_ring(gpu)
         stamp("phase 29")
     print(gpu)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, kernel_bf16]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 """The port's attention op (vaeplay_torch.ops.attention) against the JAX
-package's: its plain version on the CPU at f32, in both input layouts the
-kernel takes, the 3xTF32 arithmetic of the kernel emulated on the CPU, the
-backward (the autograd Function's) against the JAX custom VJP's, and the
-CUDA kernel on a card."""
+package's: its plain version on the CPU at f32 and with bf16 operands, in
+both input layouts the kernels take, the wrapper's choice of how each
+kernel reads k and v, the arithmetic of both kernels (3xTF32, and bf16 with
+P rounded against the running max) emulated on the CPU, the backward (the
+autograd Function's) against the JAX custom VJP's, and the CUDA kernels on
+a card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,22 +81,78 @@ def test_wrapper_rejects_other_layouts():
         attention._channel_major("k", t)
 
 
-@pytest.mark.parametrize("n,layout,dtype,copied", [
-    (16, "channel_major", torch.float32, False),  # the model's layout: read in place
-    (16, "position_major", torch.float32, True),
-    (333, "channel_major", torch.float32, True),  # rows of 333 f32 are not 16-byte multiples
-    (16, "channel_major", torch.bfloat16, True),  # widened to f32
-    (1, "channel_major", torch.float32, True),  # N = 1: channel stride 1, rows of 4 bytes
+# BP's attention at a short N, RefineNet's N 258 and BE_font's N 1, narrow Dv
+BF16_SHAPES = [(2, 100, 90, 72), (2, 258, 32, 64), (2, 1, 32, 64)]
+# bf16 operands, the plain version against JAX's _reference_attention: both
+# compute the scores and softmax in f32 from the same bf16 values, round the
+# probabilities to bf16 and sum P.V in f32, so they differ by summation
+# order, which can move a result across one bf16 rounding: one ulp, 2^-7
+# relative at most. Against the interpreted Pallas kernel at its default
+# bf16 instantiation: its blocks round P against other running maxima, 1e-2
+# of the output's max plus 1e-2 relative.
+BF16_AGAINST = [("reference", 0.0, 2.0 ** -7), ("pallas_interpret", 1e-2, 1e-2)]
+
+
+def _bf16_np(x: np.ndarray) -> np.ndarray:
+    """Round f32 to bf16 (nearest, ties to even), kept in f32."""
+    bits = x.astype(np.float32).view(np.uint32)
+    bits = bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))
+    return (bits & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("against,atol,rtol", BF16_AGAINST)
+@pytest.mark.parametrize("b,n,dk,dv", BF16_SHAPES)
+def test_plain_attention_bf16_matches_jax(b, n, dk, dv, against, atol, rtol, layout):
+    qn, kn, vn = (_bf16_np(a) for a in _qkv(b, n, dk, dv))
+    q, k, v = (_in_layout(a, layout).bfloat16() for a in (qn, kn, vn))
+    got = attention.spatial_self_attention(q, k, v)
+    assert got.shape == (b, n, dv) and got.dtype == torch.bfloat16
+    q, k, v = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (qn, kn, vn))
+    if against == "reference":
+        ref = _reference_attention(q, k, v)
+    else:
+        ref = _pallas_attention(q, k, v, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=atol * np.abs(ref).max(), rtol=rtol)
+    if n == 1:  # a softmax over one key is 1: the output is v
+        assert np.array_equal(got.float().numpy(), vn)
+
+
+@pytest.mark.parametrize("n,layout,dtype,route,copied", [
+    (16, "channel_major", torch.float32, "tma", False),  # the model's layout: read in place
+    (16, "position_major", torch.float32, "tma", True),  # copied into the TMA's form
+    (333, "channel_major", torch.float32, "direct", False),  # rows of 1332 bytes
+    (16, "channel_major", torch.bfloat16, "tma", False),  # bf16 read in place, not widened
+    (1, "channel_major", torch.float32, "direct", False),  # N = 1: rows of 4 bytes
+    (2048, "channel_major", torch.bfloat16, "tma", False),  # BP's and BCP's N in bf16
+    (258, "channel_major", torch.bfloat16, "direct", False),  # BC's N in bf16: rows of 516 bytes
+    (1, "channel_major", torch.bfloat16, "direct", False),  # BE_font's N = 1 in bf16
+    (16, "misaligned", torch.float32, "direct", False),  # a base address off 16 bytes
 ])
-def test_kernel_operand_layout(n, layout, dtype, copied):
-    """flash_attention hands the kernel k and v f32, channel-major, with
-    16-byte aligned rows and batches: as they are, or after one copy."""
-    t = _in_layout(_qkv(2, n, 6, 6)[2], layout).to(dtype)
-    got = attention._tma_operand(t)
-    assert (got is not t) is copied
-    assert got.dtype == torch.float32 and got.shape == t.shape and got.stride(1) == 1
-    assert got.stride(2) % 4 == 0 and got.stride(0) % 4 == 0 and got.data_ptr() % 16 == 0
-    torch.testing.assert_close(got, t.float(), atol=0, rtol=0)
+def test_kernel_operand_layout(n, layout, dtype, route, copied):
+    """flash_attention's choice of how the kernel reads k and v: by the TMA
+    engine where they are channel-major with 16-byte aligned rows, batches
+    and address; by the threads' direct loads, in place, where they are not;
+    one copy into the TMA's form only for a position-major operand."""
+    a = _qkv(2, n, 6, 6)[2]
+    if layout == "misaligned":  # channel-major, one element into its buffer
+        buf = torch.zeros(2 * 6 * n + 1, dtype=dtype)
+        t = buf[1:].view(2, 6, n).transpose(1, 2).copy_(torch.from_numpy(a))
+    else:
+        t = _in_layout(a, layout).to(dtype)
+    before = attention.flash_attention.copied_bytes
+    k, v, got = attention.kernel_operands(t, t)
+    assert got == route and attention.operand_route(t) == ("copy" if copied else route)
+    assert (k is not t) is copied and (v is not t) is copied
+    assert (attention.flash_attention.copied_bytes > before) is copied
+    assert k.dtype == dtype and k.shape == t.shape
+    if route == "tma":  # position stride 1, 16-byte rows, batches and address
+        size = k.element_size()
+        assert k.stride(1) == 1 or n == 1
+        assert k.stride(2) * size % 16 == 0 and k.stride(0) * size % 16 == 0
+        assert k.data_ptr() % 16 == 0
+    torch.testing.assert_close(k, t, atol=0, rtol=0)
 
 
 def _tf32(x: np.ndarray) -> np.ndarray:
@@ -127,6 +185,40 @@ def test_tf32x3_keeps_f32_accuracy(passes, within_f32_tol):
     assert np.allclose(got, ref, atol=1e-4, rtol=1e-4) is within_f32_tol
 
 
+def _bf16_kernel_emulation(q: np.ndarray, k: np.ndarray, v: np.ndarray, bk: int = 64):
+    """The bf16 kernel's tiled arithmetic in numpy (csrc/flash_attention_bf16.cu):
+    scores of bf16 operands in f32, over key tiles of bk the running max m
+    and sum l of P = exp(S - m) in f32, P rounded to bf16 for P.V summed in
+    f32, the result acc / l rounded once to bf16."""
+    q, k, v = (_bf16_np(a).astype(np.float32) for a in (q, k, v))
+    s = q @ k.transpose(0, 2, 1)
+    m = np.full(s.shape[:2] + (1,), -1e30, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros(q.shape[:2] + (v.shape[2],), np.float32)
+    for k0 in range(0, s.shape[2], bk):
+        st = s[:, :, k0:k0 + bk]
+        m_new = np.maximum(m, st.max(-1, keepdims=True))
+        p = np.exp(st - m_new).astype(np.float32)
+        alpha = np.exp(m - m_new).astype(np.float32)
+        l = alpha * l + p.sum(-1, keepdims=True)
+        acc = acc * alpha + _bf16_np(p) @ v[:, k0:k0 + bk]
+        m = m_new
+    return _bf16_np(acc / l)
+
+
+@pytest.mark.parametrize("b,n,dk,dv", [(1, 256, 90, 720), (2, 258, 32, 64)])
+def test_bf16_kernel_arithmetic_matches_plain(b, n, dk, dv):
+    """The bf16 kernel rounds P against the running max of its key tiles;
+    the plain version rounds the normalised softmax. Both round one
+    probability to bf16 (2^-9 relative) and the output once, so they agree
+    within one output ulp plus 2^-8 of the output's max."""
+    qn, kn, vn = _qkv(b, n, dk, dv)
+    got = _bf16_kernel_emulation(qn, kn, vn)
+    ref = attention.reference_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (qn, kn, vn))).float().numpy()
+    np.testing.assert_allclose(got, ref, atol=2.0 ** -8 * np.abs(ref).max(), rtol=2.0 ** -7)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_cuda_tensor_takes_the_kernel(monkeypatch, layout):
@@ -148,6 +240,27 @@ def test_cuda_tensor_takes_the_kernel(monkeypatch, layout):
     assert got.shape == (2, 333, 720) and got.transpose(1, 2).is_contiguous()
     ref = _reference_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
     np.testing.assert_allclose(got.cpu().numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,dk,dv,route", [(2, 2048, 90, 720, "tma"), (2, 258, 32, 256, "direct"),
+                                             (2, 1, 32, 256, "direct")])
+def test_cuda_bf16_kernel(b, n, dk, dv, route):
+    """bf16 operands in the model's layout take the bf16 kernel by the route
+    their N gives, with no copy, and write bf16 that agrees with the plain
+    version of the same arithmetic within 1e-2 plus 1e-2 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qn, kn, vn = _qkv(b, n, dk, dv)
+    q, k, v = (torch.from_numpy(a).cuda().bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
+               for a in (qn, kn, vn))
+    attention.reset_counts()
+    got = attention.spatial_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.routes[f"bfloat16/{route}"] == 1
+    assert attention.flash_attention.copied_bytes == 0 and got.dtype == torch.bfloat16
+    ref = attention.reference_attention(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
 
 
 def _grad_out(b, n, dv, layout, seed=1):

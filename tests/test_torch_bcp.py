@@ -306,7 +306,7 @@ def test_point_attention_block_matches_jax_and_keeps_the_kernel_layout(monkeypat
     """PointSelfAttentionBlock on (B, C, N) against the JAX block on (B, N,
     C), f32, with gamma and the biases drawn; and q, k, v reach the
     attention channel-major, in the layout the kernel reads with no copy
-    (attention._tma_operand returns k and v themselves)."""
+    (attention.kernel_operands returns k and v themselves, by the TMA)."""
     n, c = P, 260
     blk = JL.PointSelfAttentionBlock()
     x = np.random.default_rng(6).normal(size=(B, n, c)).astype(np.float32)
@@ -323,8 +323,8 @@ def test_point_attention_block_matches_jax_and_keeps_the_kernel_layout(monkeypat
     seen = []
 
     def spy(q, k, v, ring=None):
-        seen.append((attention._tma_operand(k) is k, attention._tma_operand(v) is v,
-                     q.stride(1), tuple(v.shape)))
+        k_in, v_in, route = attention.kernel_operands(k, v)
+        seen.append((k_in is k, v_in is v, route, q.stride(1), tuple(v.shape)))
         return attention.spatial_self_attention(q, k, v, ring=ring)
 
     from vaeplay_torch.core import layers as TLayers
@@ -332,7 +332,7 @@ def test_point_attention_block_matches_jax_and_keeps_the_kernel_layout(monkeypat
     xt = torch.from_numpy(x).transpose(1, 2).contiguous()  # (B, C, N)
     with torch.no_grad():
         got = port(xt)
-    assert seen == [(True, True, 1, (B, n, c))]
+    assert seen == [(True, True, "tma", 1, (B, n, c))]
     assert got.shape == (B, c, n)
     _close(got.transpose(1, 2), want, TOL, TOL, "attention block")
 

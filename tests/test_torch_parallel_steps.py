@@ -209,17 +209,26 @@ BF16_METRIC_RTOL = 2e-3  # bf16 rounding of the rest of the net, relative
 BF16_GRAD_TOL = 3e-2  # of each gradient's largest magnitude
 
 
-def test_bcp_1x2_bf16_ring_step_equals_one_rank(tmp_path, bcp_setup):
+def test_bcp_1x2_bf16_ring_step_equals_one_rank(tmp_path, bcp_setup, monkeypatch):
     """--dtype bfloat16 --point_attention on a 1x2 mesh: the ring runs inside
-    G's bf16 autocast and computes in f32 in both passes, as the one-rank
-    attention does, so the step's metrics and G's synced gradients are the
-    one-rank bf16 step's up to bf16 rounding. (A ring whose forward took
-    autocast's bf16 products, with its backward in f32, is off by 4e-3 in
-    g_adv_loss and 1e-1 in the gradients on this batch.)"""
+    G's bf16 autocast and computes in f32 in both passes, its probabilities
+    included, so the step's metrics and G's synced gradients are the one-rank
+    bf16 step's up to bf16 rounding when that step's attention computes so
+    too. (The one-rank plain attention rounds the probabilities of bf16
+    operands to bf16 before P.V, as JAX's and the bf16 kernel do; the ring
+    keeps them in f32, so the reference here widens q, k, v first. A ring
+    whose forward took autocast's bf16 products, with its backward in f32,
+    is off by 4e-3 in g_adv_loss and 1e-1 in the gradients on this batch.)"""
+    from vaeplay_torch.ops import attention
+
+    plain = attention.reference_attention
+    monkeypatch.setattr(attention, "reference_attention",
+                        lambda q, k, v: plain(q.float(), k.float(), v.float()).to(v.dtype))
     sds, batch = bcp_setup
     sds = dict(sds, g={k: v.float() for k, v in sds["g"].items()},
                d={k: v.float() for k, v in sds["d"].items()})
     want_m, _, _, want_grads = _bcp_one_rank(sds, batch, True, torch.bfloat16)
+    monkeypatch.undo()
     ranks = W.run_world(W.bcp_step, 2, tmp_path, (1, 2), sds, batch, True, torch.bfloat16)
     for k, w in want_m.items():
         got = np.mean([r["metrics"][k] for r in ranks])

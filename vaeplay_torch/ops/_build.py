@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface. `nvcc` compiles it for
 Hopper (`sm_90a`) into `vaeplay_torch/_build/<name>-<digest>.so`, where the
-digest covers the source and the flags, so an edited source is rebuilt and a
-built one is reused. Nothing here runs at import time: the first `load` of a
-library builds it, and `build` starts one `nvcc` per source, all at once.
+digest covers the source, the headers beside it (`*.cuh`) and the flags, so
+an edited source or header is rebuilt and a built one is reused. Nothing
+here runs at import time: the first `load` of a library builds it, and
+`build` starts one `nvcc` per source, all at once.
 """
 
 import ctypes
@@ -26,8 +27,12 @@ _P, _I, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 # The C functions of each library: name -> (argtypes, restype).
 SIGNATURES = {
     "flash_attention": {
-        # q, k, v, out, b, n, dk, dv, strides[12], stream
-        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I64P, _P], _I),
+        # q, k, v, out, b, n, dk, dv, strides[12], direct, stream (f32)
+        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I64P, _I, _P], _I),
+    },
+    "flash_attention_bf16": {
+        # the same arguments, bf16 tensors
+        "flash_attention_fwd_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I64P, _I, _P], _I),
     },
 }
 
@@ -48,7 +53,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str, csrc: Path = CSRC) -> Path:
-    src = (csrc / f"{name}.cu").read_bytes()
+    src = b"".join(f.read_bytes() for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -7,20 +7,24 @@ Port of vaeplay_tpu/ops/attention.py. Semantics (the reference's, exactly):
 
 `spatial_self_attention` runs through the `SpatialAttention` autograd
 Function, whose forward sends a CPU tensor to the plain version
-`reference_attention` and a CUDA tensor to the hand-written kernel
-(`csrc/flash_attention.cu`, through `flash_attention`), for every N. There is
-no fallback: the kernel launches or the call raises. Its backward, on either
-device, is `attention_backward`: the JAX package's recompute VJP
-(`_pallas_attention_bwd`) as plain f32 batched matrix products.
+`reference_attention` and a CUDA tensor to a hand-written kernel (through
+`flash_attention`): f32 operands to `csrc/flash_attention.cu` (3xTF32), bf16
+operands to `csrc/flash_attention_bf16.cu` (bf16 wgmma, the TPU kernel's
+default arithmetic), for every N. There is no fallback: the kernel launches
+or the call raises. Its backward, on either device, is `attention_backward`:
+the JAX package's recompute VJP (`_pallas_attention_bwd`) as plain f32
+batched matrix products.
 
 Shapes are (B, N, C) throughout. `flash_attention` takes each of q, k, v in
 either of two layouts: position-major (channel stride 1, a contiguous
 (B, N, C)) or channel-major (position stride 1, the (B, N, C) transpose view
 of a contiguous (B, C, N), which is how an NCHW activation holds its
-positions), in f32 or bf16. The kernel itself reads f32 with k and v
-channel-major and 16-byte aligned rows, where the model leaves them; any
-other k or v is brought into that form with one copy, and bf16 is widened
-to f32 (exactly) and the result rounded once to bf16.
+positions), in f32 or bf16, and writes the result in their dtype. The
+kernels read q with any strides, and k and v where the model leaves them:
+by the TMA engine when they are channel-major with 16-byte aligned rows
+(route "tma"), else by the threads' own loads (route "direct": BC's N =
+258, BE_font's N = 1, an address off 16 bytes). Only a position-major k or
+v, which no model path passes, is copied first, into the TMA's form.
 
 `RingRouting` (the JAX module's, :150-175) sends a position axis long enough
 through the ring over a mesh's "model" ranks (parallel/ring_attention.py)
@@ -37,8 +41,12 @@ from torch.autograd.function import once_differentiable
 
 from vaeplay_torch.ops import _build
 
-MAX_DK = 128  # the kernel's limit (MAX_DK in csrc/flash_attention.cu)
-_DTYPES = (torch.float32, torch.bfloat16)
+MAX_DK = 128  # the kernels' limit (MAX_DK in csrc/flash_attention*.cu)
+# dtype -> (library, C function) of its kernel
+_KERNELS = {torch.float32: ("flash_attention", "flash_attention_fwd"),
+            torch.bfloat16: ("flash_attention_bf16", "flash_attention_fwd_bf16")}
+# the launch counts by route (flash_attention.routes)
+ROUTES = tuple(f"{str(dt)[6:]}/{r}" for dt in _KERNELS for r in ("tma", "direct"))
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -48,11 +56,13 @@ def _compute_dtype(t: torch.Tensor) -> torch.dtype:
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain version: (B, N, Dk), (B, N, Dk), (B, N, Dv) -> (B, N, Dv), any
-    strides. Products and softmax in f32 (f64 for f64 inputs); the result has
-    v's dtype."""
+    strides. Scores and softmax in f32 (f64 for f64 inputs); the
+    probabilities rounded to v's dtype before P.V, which sums in f32, and the
+    result in v's dtype: with bf16 operands the arithmetic of the JAX
+    package's `_reference_attention` and of the bf16 kernel."""
     ct = _compute_dtype(q)
     energy = torch.bmm(q.to(ct), k.to(ct).transpose(1, 2))
-    attn = torch.softmax(energy, dim=-1)
+    attn = torch.softmax(energy, dim=-1).to(v.dtype).to(ct)
     return torch.bmm(attn, v.to(ct)).to(v.dtype)
 
 
@@ -75,7 +85,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {name} must be (B, N, D), got {tuple(t.shape)}")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("flash_attention: q, k, v must share one dtype and device")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _KERNELS:
         raise ValueError(f"flash_attention: dtype {q.dtype} is not float32 or bfloat16")
     b, n, dk = q.shape
     if k.shape != q.shape or v.shape[:2] != (b, n):
@@ -101,28 +111,63 @@ def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
                          "transpose view of a contiguous (B, Dv, N)")
 
 
-def _tma_operand(t: torch.Tensor) -> torch.Tensor:
-    """t as the kernel reads k and v: f32, position stride 1, address and
-    channel and batch strides multiples of 16 bytes. t itself where it is so
-    already (the model's layout), else one copy into a (B, C, N4) buffer,
-    N4 the next multiple of 4, returned as its (B, N, C) view."""
-    b, n, c = t.shape
-    rows = (t.stride(2),) if b == 1 else (t.stride(2), t.stride(0))
-    if (t.dtype == torch.float32 and t.stride(1) == 1 and t.data_ptr() % 16 == 0
-            and all(s > 0 and s % 4 == 0 for s in rows)):
-        return t
-    buf = torch.empty((b, c, -(-n // 4) * 4), dtype=torch.float32, device=t.device)
-    view = buf[:, :, :n].transpose(1, 2)
-    view.copy_(t)
-    return view
+def operand_route(t: torch.Tensor) -> str:
+    """How the kernel reads k or v: "tma" (channel-major, or one position,
+    with the address and the channel and batch strides multiples of 16
+    bytes), "copy" (position-major: copied into that form first) or "direct"
+    (the threads load it from its strides)."""
+    b, n, _ = t.shape
+    s0, s1, s2 = t.stride()
+    if n > 1 and s1 != 1:
+        return "copy"
+    size = t.element_size()
+    if (t.data_ptr() % 16 == 0 and s2 > 0 and s2 * size % 16 == 0
+            and (b == 1 or (s0 > 0 and s0 * size % 16 == 0))):
+        return "tma"
+    return "direct"
+
+
+def kernel_operands(k: torch.Tensor, v: torch.Tensor):
+    """(k, v, route) as the kernel reads them: both in place by the threads
+    ("direct") when either needs it; else both by the TMA engine, a
+    position-major one after one copy into a (B, C, N') buffer of its dtype,
+    N' the next multiple of 16 bytes of positions, returned as its (B, N, C)
+    view. flash_attention.copied_bytes counts what the copies wrote."""
+    routes = operand_route(k), operand_route(v)
+    if "direct" in routes:
+        return k, v, "direct"
+    out = []
+    for t, route in zip((k, v), routes):
+        if route == "copy":
+            b, n, c = t.shape
+            per_row = 16 // t.element_size()
+            buf = torch.empty((b, c, -(-n // per_row) * per_row), dtype=t.dtype, device=t.device)
+            t = buf[:, :, :n].transpose(1, 2).copy_(t)
+            flash_attention.copied_bytes += buf.numel() * buf.element_size()
+        out.append(t)
+    return out[0], out[1], "tma"
+
+
+_FUNCTIONS = {}  # dtype -> its kernel's C function, bound at first use
+_STRIDES = {}  # the 12 strides of a call -> their ctypes array, built once
+
+
+def _kernel(dtype: torch.dtype):
+    fn = _FUNCTIONS.get(dtype)
+    if fn is None:
+        library, function = _KERNELS[dtype]
+        fn = _FUNCTIONS[dtype] = getattr(_build.load(library), function)
+    return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream and return `out`
-    (by default a new contiguous (B, N, Dv)). CUDA tensors only; raises on
-    anything the kernel does not take. `flash_attention.launches` counts the
-    launches."""
+    """Launch the kernel of q's dtype on PyTorch's current stream and return
+    `out` (by default a new contiguous (B, N, Dv)), written by the kernel in
+    that dtype. CUDA tensors only; raises on anything the kernels do not
+    take. `flash_attention.launches` counts the launches, `.routes` them by
+    dtype and route (ROUTES), `.copied_bytes` the bytes of operand copies;
+    `reset_counts()` sets all three to 0."""
     _check(q, k, v)
     b, n, dk = q.shape
     dv = v.shape[2]
@@ -130,25 +175,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
     else:
         _check_out(out, v)
-    q32, k32, v32 = q.float(), _tma_operand(k), _tma_operand(v)
-    res = out if out.dtype == torch.float32 else torch.empty_strided(
-        out.shape, out.stride(), dtype=torch.float32, device=out.device)
-    lib = _build.load("flash_attention")
-    strides = (ctypes.c_longlong * 12)(*q32.stride(), *k32.stride(), *v32.stride(), *res.stride())
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q32.data_ptr(), k32.data_ptr(), v32.data_ptr(), res.data_ptr(),
-            b, n, dk, dv, strides, ctypes.c_void_p(stream))
+    k_in, v_in, route = kernel_operands(k, v)
+    fn = _kernel(q.dtype)
+    key = q.stride() + k_in.stride() + v_in.stride() + out.stride()
+    strides = _STRIDES.get(key)
+    if strides is None:
+        strides = _STRIDES[key] = (ctypes.c_longlong * 12)(*key)
+    index = q.device.index
+    # the current stream's handle (torch.cuda.current_stream(index).cuda_stream
+    # without building a Stream object: a few microseconds a call)
+    args = (q.data_ptr(), k_in.data_ptr(), v_in.data_ptr(), out.data_ptr(), b, n, dk, dv, strides,
+            int(route == "direct"), torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
-    if res is not out:
-        out.copy_(res)
+    flash_attention.routes[f"{str(q.dtype)[6:]}/{route}"] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_counts() -> None:
+    """Sets flash_attention's launch, route and copy counts to 0."""
+    flash_attention.launches = 0
+    flash_attention.routes = dict.fromkeys(ROUTES, 0)
+    flash_attention.copied_bytes = 0
+
+
+reset_counts()
 
 
 def _bmm_like(like: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -182,14 +239,15 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class SpatialAttention(torch.autograd.Function):
     """softmax(q kᵀ) v with the kernel's forward on a CUDA tensor, the plain
     version on a CPU tensor, and `attention_backward` on both. The forward
-    saves only q, k and v. Under a bf16 autocast the plain version still
-    computes in f32, as the kernel does with bf16 operands."""
+    saves only q, k and v. Under a bf16 autocast the plain version computes
+    as the bf16 kernel does: bf16 operands, f32 scores and sums, P rounded
+    to bf16."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
-            with torch.autocast("cpu", enabled=False):  # f32 products, as the kernel's
+            with torch.autocast("cpu", enabled=False):  # the kernels' arithmetic
                 return reference_attention(q, k, v)
         b, n, dv = v.shape
         out = torch.empty((b, dv, n), dtype=v.dtype, device=v.device).transpose(1, 2)

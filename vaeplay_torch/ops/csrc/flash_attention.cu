@@ -7,13 +7,17 @@
 //
 //   out[b, i, :] = sum_j softmax_j(q[b, i, :] . k[b, j, :]) v[b, j, :]
 //
-// with no 1/sqrt(d). q, k: (B, N, Dk); v, out: (B, N, Dv); f32. Each operand
-// comes with its element strides (batch, position, channel), so the kernel
-// reads q, k, v and writes out where the model keeps them: k and v
-// channel-major (position stride 1, the (B, C, N) layout of an NCHW
-// activation) with 16-byte aligned rows, q and out any strides. The wrapper
-// brings other inputs into that form with one copy (bf16 is widened there:
-// it is exact in f32).
+// with no 1/sqrt(d). q, k: (B, N, Dk); v, out: (B, N, Dv); f32 (bf16 operands
+// take csrc/flash_attention_bf16.cu). Each operand comes with its element
+// strides (batch, position, channel), so the kernel reads q, k, v and writes
+// out where the model keeps them. k and v arrive by the TMA engine where it
+// can describe them: channel-major (position stride 1, the (B, C, N) layout
+// of an NCHW activation) with 16-byte aligned rows. Otherwise (`direct`: a
+// row of N f32 that is not a multiple of 16 bytes, as BC's N = 258; N = 1,
+// where the channel stride is 1, as BE_font's embedding blocks; a base
+// address off 16 bytes) the threads load the same tiles themselves from the
+// strides, into the same swizzled stages. The wrapper chooses the route and
+// copies nothing but position-major k or v, which no model path passes.
 //
 // What bounds it on this card. At the BP shape (B=4, N=2048, Dk=90, Dv=720)
 // one call is 2*B*N^2*(Dk+Dv) = 27.2 GFLOP of products on 53 MB of inputs and
@@ -46,28 +50,31 @@
 //   is the loop over key tiles; its VMEM scratch (max, sum, accumulator)
 //   lives in registers.
 //   K and V tiles of 32 keys arrive by the TMA engine (tensor maps over
-//   (N, C, B), 128-byte swizzle, mbarriers) in rings of two stages, K two
+//   (N, C, B), 128-byte swizzle, mbarriers) or by the threads' direct loads
+//   (csrc/hopper.cuh:load_tile: cp.async of 8 or 4 bytes, waited for before
+//   the barrier that opens each key tile), in rings of two stages, K two
 //   tiles ahead and V one, each warpgroup loading its own 120 V rows; keys
-//   past N and channels past Dk or Dv arrive as zeros. Each warpgroup splits
-//   its rows of the V tile in place (big) and into a second buffer (small),
-//   then runs P.V as 3 x 4 wgmma m64n120k8 per tile with P from registers and
-//   V read as K-major from shared memory (channel-major V is K-major, as
-//   TF32 wgmma needs).
+//   past N and channels past Dk arrive as zeros (and past Dv by TMA; the
+//   direct loads skip those rows, which feed only columns never stored).
+//   Each warpgroup splits its rows of the V tile in place (big) and into a
+//   second buffer (small), then runs P.V as 3 x 4 wgmma m64n120k8 per tile
+//   with P from registers and V read as K-major from shared memory
+//   (channel-major V is K-major, as TF32 wgmma needs).
 //   Dk is padded with zeros to a multiple of 32 (96 at Dk = 90). Key columns
 //   past N score -1e30 (as the TPU kernel's mask); query rows and value
 //   columns past the edge are never stored. Fragment reads of K and V are
 //   free of bank conflicts by the swizzle.
-//   Per block: 384 threads at 155 registers each and no spills (ptxas,
-//   CUDA 12.8; chip_smoke.py prints the count), 222,240 bytes of shared
-//   memory (two K stages 32 KB, two V stages 90 KB, the small parts of V
-//   45 KB, Q 32 KB, two score tiles 18 KB).
+//   Per block: 384 threads at 155 registers each (168 with the direct
+//   loads) and no spills (ptxas, CUDA 12.8; chip_smoke.py prints the
+//   count), 222,240 bytes of shared memory (two K stages 32 KB, two V
+//   stages 90 KB, the small parts of V 45 KB, Q 32 KB, two score tiles
+//   18 KB).
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cudaTypedefs.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;                 // query rows per block
 constexpr int BK = 32;                 // keys per staged tile, one 128-byte row
@@ -79,7 +86,6 @@ constexpr int NT = 15;                 // value n-tiles (8 columns) per warp
 constexpr int V_ROWS = NT * 8;         // value columns (V rows) per warpgroup, 120
 constexpr int BLK_NT = WC * NT;        // value n-tiles per block
 constexpr int LDS = BK + 4;            // row stride (elements) of the score tiles
-constexpr int MAX_DEVICES = 64;
 constexpr float NEG_INF = -1e30f;
 
 // Shared memory of one block: two K stages and two V stages first (the
@@ -98,10 +104,10 @@ static_assert(sizeof(float) * K_STAGE % 1024 == 0 && sizeof(float) * V_STAGE % 1
 static_assert(SMEM <= 232448, "one block per SM");
 
 struct Params {
-  CUtensorMap k_map, v_map;  // K and V as (N, C, B) tensors
-  const float* q;
+  CUtensorMap k_map, v_map;  // K and V as (N, C, B) tensors (the TMA route)
+  const float *q, *k, *v;
   float* out;
-  int64_t sq[3], so[3];      // (batch, position, channel) strides, elements
+  int64_t sq[3], sk[3], sv[3], so[3];  // (batch, position, channel) strides, elements
   int n, dk, dv;
   int bdv;                   // value columns per block, a multiple of 8
 };
@@ -128,52 +134,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(arrivals)
-               : "memory");
-}
-// The one arrival of a phase, which also expects `bytes` of TMA loads.
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-                 "selp.u32 %0, 1, 0, p; }"
-                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-// A TMA load of one box of a 3-d tensor map at element coordinates (x, y, z)
-// into dst, completing on `bar`; elements outside the tensor become zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma: the warpgroup's (4 warps, 128 threads) asynchronous 64 x N x 8
-// product. B comes from shared memory through a descriptor: K-major (the
-// 8 keys of a k-step contiguous in each row), 128-byte swizzle, 8-row groups
-// 1024 bytes apart.
-__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
-  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
 // Keeps the compiler from moving an accumulator while a wgmma owns it.
 __device__ __forceinline__ void pin(float (&d)[NT][4]) {
 #pragma unroll
@@ -207,13 +167,29 @@ __device__ __forceinline__ void wgmma_120(float (&d)[NT][4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Element (pos, chan) of a staged tile: one row of BK positions per channel,
-// in the TMA engine's 128-byte swizzle, where the 16-byte unit u of row r
-// sits at unit u ^ (r % 8).
-__device__ __forceinline__ float at(const float* tile, int pos, int chan) {
-  return tile[chan * BK + ((((pos >> 2) ^ (chan & 7)) << 2) | (pos & 3))];
+// Elements first, first + count, ... below total, each read by load(e) and
+// written by store(e, x), 8 loads in flight a thread: Q staged from any
+// strides without one global load latency an element.
+template <typename T, typename Load, typename Store>
+__device__ __forceinline__ void batched(int total, int first, int count, Load load, Store store) {
+  constexpr int BATCH = 8;
+  for (int e0 = first; e0 < total; e0 += BATCH * count) {
+    T x[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) x[u] = e0 + u * count < total ? load(e0 + u * count) : T(0);
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      if (e0 + u * count < total) store(e0 + u * count, x[u]);
+  }
 }
 
+// Element (pos, chan) of a staged tile: one row of BK positions per channel.
+__device__ __forceinline__ float at(const float* tile, int pos, int chan) {
+  return tile[swizzled<float>(chan, pos)];
+}
+
+// DIRECT: the threads load K and V (else the TMA engine does).
+template <bool DIRECT>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_attention_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -240,12 +216,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* qb = p.q + b * p.sq[0];
   float* ob = p.out + b * p.so[0];
 
-  // K tile j lives in K stage j & 1 and arrives on kfull[j & 1] (one
-  // arrival, thread 0); V tile j lives in V stage j & 1 and arrives on
-  // vfull[j & 1] (one arrival per warpgroup, its 120 rows). Tile j
-  // completes phase (j >> 1) & 1.
+  // K tile j lives in K stage j & 1 and V tile j in V stage j & 1. By TMA,
+  // K tile j arrives on kfull[j & 1] (one arrival, thread 0) and V tile j
+  // on vfull[j & 1] (one arrival per warpgroup, its 120 rows); tile j
+  // completes phase (j >> 1) & 1. Direct, every thread copies its share
+  // (each warpgroup its V rows below Dv: the rest feed only columns that are
+  // never stored) and waits for all its copies before the loop's barrier,
+  // which follows every wait. Every thread calls these.
+  const int width = DIRECT ? min(direct_width(p.k, p.sk, n), direct_width(p.v, p.sv, n)) : 0;
+  const int vrows = max(min(V_ROWS, dv - c0 - wc * V_ROWS), 0);
   auto issue_k = [&](int tile) {
-    if (tid == 0) {
+    if (DIRECT) {
+      load_tile(kst + (tile & 1) * K_STAGE, p.k, p.sk, b, tile * BK, n, dkp, 0, dk, tid, THREADS,
+                width);
+    } else if (tid == 0) {
       mbar_arrive_expect(kfull + (tile & 1), uint32_t(sizeof(float) * BK * dkp));
       tma_load(kst + (tile & 1) * K_STAGE, &p.k_map, tile * BK, 0, int(b), kfull + (tile & 1));
     }
@@ -253,14 +237,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   // every warpgroup computes its full 120 columns; only the block's columns
   // are stored
   auto issue_v = [&](int tile) {
-    if ((tid & 127) == 0) {
+    if (DIRECT) {
+      load_tile(vst + (tile & 1) * V_STAGE + wc * V_ROWS * BK, p.v, p.sv, b, tile * BK, n, vrows,
+                c0 + wc * V_ROWS, dv, tid & 127, 128, width);
+    } else if ((tid & 127) == 0) {
       mbar_arrive_expect(vfull + (tile & 1), uint32_t(sizeof(float) * BK * V_ROWS));
       tma_load(vst + (tile & 1) * V_STAGE + wc * V_ROWS * BK, &p.v_map, tile * BK,
                c0 + wc * V_ROWS, int(b), vfull + (tile & 1));
     }
   };
-  auto wait_k = [&](int tile) { mbar_wait(kfull + (tile & 1), (tile >> 1) & 1); };
-  auto wait_v = [&](int tile) { mbar_wait(vfull + (tile & 1), (tile >> 1) & 1); };
+  auto wait_k = [&](int tile) {
+    if (DIRECT) cp_async_wait<0>();
+    else mbar_wait(kfull + (tile & 1), (tile >> 1) & 1);
+  };
+  auto wait_v = [&](int tile) {
+    if (DIRECT) cp_async_wait<0>();
+    else mbar_wait(vfull + (tile & 1), (tile >> 1) & 1);
+  };
 
   // scores of rows 16wr.. and key columns 16wc..16wc+15 of tile `tile`, by
   // column groups 0 and 1, into score buffer tile & 1; even and odd k-steps
@@ -324,14 +317,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Q once, zero-padded to BQ x dkp, in the A-fragment order: element
   // (row, d) of row group row / 16 goes to lane 4 * (row % 8) + d % 4, slot
   // (row % 16 >= 8) + 2 * (d % 8 >= 4); the scores split it as they load it
-  for (int e = tid; e < BQ * dkp; e += THREADS) {
-    const int r = e & (BQ - 1), d = e >> 6;
-    const int row = q0 + r;
-    const float x = (row < n && d < dk) ? qb[row * p.sq[1] + d * p.sq[2]] : 0.f;
-    const int at_ = (((r >> 4) * MAX_KS + (d >> 3)) * 32 + 4 * (r & 7) + (d & 3)) * 4 +
-                    ((r >> 3) & 1) + 2 * ((d >> 2) & 1);
-    qfrag[at_] = __float_as_uint(x);
-  }
+  batched<float>(
+      BQ * dkp, tid, THREADS,
+      [&](int e) {
+        const int row = q0 + (e & (BQ - 1)), d = e >> 6;
+        return row < n && d < dk ? __ldg(qb + row * p.sq[1] + d * p.sq[2]) : 0.f;
+      },
+      [&](int e, float x) {
+        const int r = e & (BQ - 1), d = e >> 6;
+        qfrag[(((r >> 4) * MAX_KS + (d >> 3)) * 32 + 4 * (r & 7) + (d & 3)) * 4 + ((r >> 3) & 1) +
+              2 * ((d >> 2) & 1)] = __float_as_uint(x);
+      });
   wait_k(0);
   __syncthreads();  // Q and K tile 0 are staged
   scores(0);
@@ -439,9 +435,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {  // k-step kk: bytes 32kk.. of each row
-      wgmma_120(acc, ps[kk], kmajor_desc(vbig + 8 * kk));
-      wgmma_120(acc, pb[kk], kmajor_desc(vsm + 8 * kk));
-      wgmma_120(acc, pb[kk], kmajor_desc(vbig + 8 * kk));
+      wgmma_120(acc, ps[kk], tile_desc(vbig + 8 * kk));
+      wgmma_120(acc, pb[kk], tile_desc(vsm + 8 * kk));
+      wgmma_120(acc, pb[kk], tile_desc(vbig + 8 * kk));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -462,59 +458,29 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return PFN_cuTensorMapEncodeTiled_v12000(nullptr);
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }();
-  return fn;
-}
-
-// The TMA map of a channel-major f32 tensor (position stride 1) as an
-// (N, C, B) tensor with boxes of BK positions x `rows` channels in the
-// 128-byte swizzle; false where the TMA engine cannot take it (a stride or
-// the address not a multiple of 16 bytes).
-bool encode_channel_major(CUtensorMap* map, const void* ptr, int n, int c, int b,
-                          const long long* stride, int rows) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  const int64_t row_bytes = stride[2] * 4;
-  const int64_t batch_bytes = b > 1 ? stride[0] * 4 : row_bytes * c;
-  if (encode == nullptr || stride[1] != 1 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 ||
-      row_bytes <= 0 || row_bytes % 16 != 0 || batch_bytes <= 0 || batch_bytes % 16 != 0)
-    return false;
-  const cuuint64_t dims[3] = {cuuint64_t(n), cuuint64_t(c), cuuint64_t(b)};
-  const cuuint64_t strides[2] = {cuuint64_t(row_bytes), cuuint64_t(batch_bytes)};
-  const cuuint32_t box[3] = {BK, cuuint32_t(rows), 1};
-  const cuuint32_t element_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
-                box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // Returns a cudaError_t value; 0 is success. All four tensors are f32.
 // strides: 12 element strides, (batch, position, channel) of q, k, v and out
-// in turn. k and v must be channel-major (position stride 1) with their
-// address and channel and batch strides multiples of 16 bytes, else the
-// call returns cudaErrorInvalidValue and launches nothing. The caller has
-// checked shapes.
+// in turn. direct = 0: k and v are read by the TMA engine and must be
+// channel-major (position stride 1) with their address and channel and
+// batch strides multiples of 16 bytes, else the call returns
+// cudaErrorInvalidValue and launches nothing; direct = 1: the threads load
+// them, from any strides. The caller has checked shapes.
 extern "C" int flash_attention_fwd(const float* q, const float* k, const float* v, float* out,
                                    int b, int n, int dk, int dv, const long long* strides,
-                                   void* stream) {
+                                   int direct, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || dk < 1 || dk > MAX_DK || dv < 1)
     return int(cudaErrorInvalidValue);
   Params p{};
   p.q = q;
+  p.k = k;
+  p.v = v;
   p.out = out;
   for (int i = 0; i < 3; ++i) {
     p.sq[i] = strides[i];
+    p.sk[i] = strides[3 + i];
+    p.sv[i] = strides[6 + i];
     p.so[i] = strides[9 + i];
   }
   p.n = n; p.dk = dk; p.dv = dv;
@@ -522,23 +488,19 @@ extern "C" int flash_attention_fwd(const float* q, const float* k, const float* 
   const int nv = (dv + 7) / 8;
   const int tiles = (nv + BLK_NT - 1) / BLK_NT;
   p.bdv = 8 * ((nv + tiles - 1) / tiles);
-  if (!encode_channel_major(&p.k_map, k, n, dk, b, strides + 3, (dk + 31) & ~31) ||
-      !encode_channel_major(&p.v_map, v, n, dv, b, strides + 6, V_ROWS))
+  if (!direct &&
+      (!encode_channel_major(&p.k_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, k, n, dk, b,
+                             strides + 3, (dk + 31) & ~31) ||
+       !encode_channel_major(&p.v_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, v, n, dv, b,
+                             strides + 6, V_ROWS)))
     return int(cudaErrorInvalidValue);
 
-  // the shared-memory limit is raised once per device
-  static bool raised[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool raised[2][MAX_DEVICES] = {};
+  const auto kernel = direct ? flash_attention_fwd_kernel<true> : flash_attention_fwd_kernel<false>;
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kernel), int(SMEM), raised[direct != 0]);
   if (err != cudaSuccess) return int(err);
-  if (dev < 0 || dev >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
-  if (!raised[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
-    if (err != cudaSuccess) return int(err);
-    raised[dev] = true;
-  }
   const dim3 grid((n + BQ - 1) / BQ, (dv + p.bdv - 1) / p.bdv, b);
-  flash_attention_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
