@@ -1,0 +1,3 @@
+"""device_idle_pct.train in a cell that reports train_samples_per_s.host_bound."""
+
+from benchmark.core.readers import idle_pct as read  # noqa: F401

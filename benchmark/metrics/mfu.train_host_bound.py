@@ -1,0 +1,3 @@
+"""mfu.train in a cell that reports train_samples_per_s.host_bound."""
+
+from benchmark.core.readers import mfu_pct as read  # noqa: F401
