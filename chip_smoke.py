@@ -918,56 +918,33 @@ def _time_batches(model, batches, dev, precision: str, gpu: str) -> None:
               f"incl. host-to-device copy) on {gpu}")
 
 
-def _group(kernel: str, ops, transposed: bool = False) -> str:
-    """The profile group of a device activity, from its name and the names of
-    the op that launched it and that op's callers (innermost first);
-    `transposed`: it runs in the backward of a transposed convolution."""
+def _vae_gan_group(g: str, ops) -> str:
+    """`g`, a kernel's `benchmark.core.trace.group`, with two kinds of its
+    elementwise kernels named apart, as the VAE-GAN's breakdown reads them:
+    FrozenBatchNorm's addcmul and the upsampling layers."""
+    if not g.startswith("elementwise and other"):
+        return g
+    tail = g[len("elementwise and other"):]  # ", backward" or nothing
     node = next((o.rsplit(": ", 1)[-1] for o in ops
                  if o.startswith("autograd::engine::evaluate_function")), "")
-    optimizer = next((o for o in ops if o.startswith("Optimizer.")), "")
-    if "flash_attention" in kernel:
-        return "attention kernel (forward)"
-    if "Memcpy" in kernel:
-        return "device-to-host copy" if "DtoH" in kernel else "host-to-device copy"
-    if optimizer:  # Optimizer.step#Adam.step -> Adam
-        return f"{optimizer.split('#')[-1].split('.')[0]} (step and zero_grad)"
-    if node.startswith("SpatialAttentionBackward"):
-        return "attention backward (bmm, softmax; plain)"
-    if any(t in kernel for t in ("nchwToNhwc", "nhwcToNchw")):
-        return "cuDNN NCHW<->NHWC transposes"
     if node.startswith("AddcmulBackward") or "aten::addcmul" in ops:
-        return "FrozenBatchNorm (addcmul)" + (", backward" if node else "")
+        return "FrozenBatchNorm (addcmul)" + tail
     if node.startswith("Upsample") or any(o.startswith("aten::upsample") for o in ops):
-        return "upsampling (bilinear, nearest)" + (", backward" if node else "")
-    if node.startswith(("CudnnBatchNormBackward", "NativeBatchNormBackward")):
-        return "BatchNorm / InstanceNorm, backward"
-    if "aten::instance_norm" in ops:
-        return "InstanceNorm, forward"
-    if "aten::batch_norm" in ops:
-        return "BatchNorm, forward"
-    if node.startswith("ConvolutionBackward"):
-        return ("conv-transpose dgrad/wgrad (cuDNN)" if transposed
-                else "convolution dgrad/wgrad (cuDNN)")
-    if "aten::conv_transpose2d" in ops:
-        return "conv-transpose forward (cuDNN)"
-    if any(t in kernel for t in ("conv", "fprop", "Nhwc", "Nchw")):
-        return "convolution forward (cuDNN)"
-    if "gemm" in kernel:
-        return "GEMMs (linear layers, 1x1 convolutions)" + (", backward" if node else "")
-    if node.startswith("GridSampler") or any(o.startswith("aten::grid_sampler") for o in ops):
-        return "point sampling (grid_sample)" + (", backward" if node else "")
-    if "copy" in kernel:
-        return "tensor copies (.contiguous, layout)"
-    return "elementwise and other" + (", backward" if node else "")
+        return "upsampling (bilinear, nearest)" + tail
+    return g
 
 
 def _profile(run, label: str, runs: int = 3) -> None:
     """Device time by kernel group per call of run(), over `runs` calls
     (after one profiled call, which pays CUPTI's start-up), against their
     wall time. Each kernel is grouped by its name and by the ops that
-    launched it (an autograd node, the optimizer); a backward node is tied
-    to its forward op by the autograd sequence number both carry."""
+    launched it (an autograd node, the optimizer; `benchmark.core.trace.group`,
+    refined by `_vae_gan_group`); a backward node is tied to its forward op
+    by the autograd sequence number both carry. Busy time is the union of the device's activities
+    (`benchmark.core.trace.busy`): a sum would count overlapping ones twice."""
     from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.core.trace import busy as union_s, group
 
     for n in (1, runs):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -980,7 +957,10 @@ def _profile(run, label: str, runs: int = 3) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / runs
+    activities = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+    busy = union_s(activities, -math.inf, math.inf) / 1e3 / runs  # microseconds -> ms
+    total = sum(e.self_device_time_total for e in events) / 1e3 / runs
     print(f"[{label}] profiled (PyTorch defaults): {busy:.2f} ms device busy, "
           f"{wall:.2f} ms wall, idle share {max(0.0, 1 - busy / wall):.3f}, "
           f"{sum(e.count for e in events) // runs} device activities")
@@ -1000,12 +980,11 @@ def _profile(run, label: str, runs: int = 3) -> None:
             parent = parent.cpu_parent
         for k in e.kernels:
             if k.name != e.name:  # a user range's own span on the device
-                group = _group(k.name, ops, transposed)
-                groups[group] = groups.get(group, 0.0) + k.duration / 1e3 / runs
-    attributed = sum(groups.values())
-    groups["(not attributed to a launching op)"] = busy - attributed
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[{label}]   {ms:8.3f} ms  {group}")
+                g = _vae_gan_group(group(k.name, ops, transposed), ops)
+                groups[g] = groups.get(g, 0.0) + k.duration / 1e3 / runs
+    groups["(not attributed to a launching op)"] = total - sum(groups.values())
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[{label}]   {ms:8.3f} ms  {g}")
     for e in events[:12]:
         print(f"[{label}]   {e.self_device_time_total / 1e3 / runs:8.3f} ms  "
               f"x{e.count // runs:<3d} {e.key[:90]}")

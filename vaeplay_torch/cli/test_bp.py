@@ -25,6 +25,7 @@ from vaeplay_torch.eval.viz_points import draw_points, draw_rays
 from vaeplay_torch.models.bp import ComposeNet
 from vaeplay_torch.ops.losses import VALUE_WEIGHT
 from vaeplay_torch.train.checkpoint import Checkpointer
+from vaeplay_torch.utils.profiling import span
 from vaeplay_torch.utils.viz import makedirs, save_image_grid
 
 # Tensors of the reference state_dict with no counterpart in the port: the
@@ -51,9 +52,14 @@ def load_model(model_path, img_size: int, device: torch.device) -> ComposeNet:
 
 
 def predict(model: ComposeNet, imgs: np.ndarray, device: torch.device) -> Dict[str, torch.Tensor]:
-    """One forward of NHWC float images (B, H, W, 3); outputs stay on `device`."""
-    with torch.inference_mode():
-        return model(torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(device))
+    """One forward of NHWC float images (B, H, W, 3); outputs stay on `device`.
+    The call is the span `infer.predict`, holding `data.h2d` (the images'
+    copy from pageable memory) and `infer.forward`."""
+    with span("infer.predict"), torch.inference_mode():
+        with span("data.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(device)
+        with span("infer.forward"):
+            return model(x)
 
 
 def render_batch(preds: Dict[str, torch.Tensor], imgs: np.ndarray, path: str) -> None:

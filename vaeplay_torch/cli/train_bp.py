@@ -35,13 +35,20 @@ from vaeplay_torch.train.state import TrainState, step_lr_every_two_epochs
 from vaeplay_torch.train.steps_bp import make_bp_train_step
 from vaeplay_torch.utils.amp import resolve_dtype
 from vaeplay_torch.utils.metrics_log import MetricsLogger
+from vaeplay_torch.utils.profiling import span
 
 AVG_KEYS = ("loss_cx", "loss_cy", "loss_rest", "trig_loss", "param_loss")
 
 
 def to_device(batch, device: torch.device):
-    """A host batch of numpy arrays as f32 tensors on `device`."""
-    return tuple(torch.from_numpy(a).float().to(device) for a in batch)
+    """A host batch of numpy arrays as f32 tensors on `device`, each array's
+    copy from pageable memory the span `data.h2d`."""
+
+    def copy(a):
+        with span("data.h2d"):
+            return torch.from_numpy(a).float().to(device)
+
+    return tuple(copy(a) for a in batch)
 
 
 def main(argv=None) -> str:

@@ -55,7 +55,7 @@ from vaeplay_torch.train.steps_style_gan import (AVG_KEYS, make_style_gan_train_
                                                  sort_batch_by_label)
 from vaeplay_torch.utils.amp import resolve_dtype
 from vaeplay_torch.utils.metrics_log import MetricsLogger
-from vaeplay_torch.utils.profiling import StepTimer
+from vaeplay_torch.utils.profiling import StepTimer, span
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[int, int]]
 
@@ -93,17 +93,33 @@ def device_batches(dset, batch_size: int, seed: int, workers: int, num_classes: 
                    bucketing: Bucketing, device: torch.device) -> Iterator[Batch]:
     """One epoch of (x_target, x_content, labels, split) on `device`: the
     synthetic bubbles rendered there from their (sorted) tables, the folder
-    ones loaded on the host, sorted there and copied."""
-    if isinstance(dset, SyntheticBubbleDataset):
-        for params, raw in dset.epoch_params(batch_size, seed):
-            yield render_batch(params, raw % num_classes, bucketing, dset.img_size, device)
-    else:
-        for b in epoch_iterator(dset, batch_size, seed, workers):
-            (imgs, bimgs), labels, split = bucketing.sort(b["labels"] % num_classes,
-                                                          b["imgs"], b["bimgs"])
-            nchw = lambda a: torch.from_numpy(a).to(device).permute(0, 3, 1, 2).contiguous()
-            yield (nchw(imgs), nchw(bimgs).expand(-1, 3, -1, -1).contiguous(),
-                   torch.from_numpy(labels).to(device), split)
+    ones loaded on the host, sorted there and copied. Making each batch (not
+    the wait at the yield) is the span `data.feed`, each copy from pageable
+    memory a `data.h2d` inside it."""
+    synthetic = isinstance(dset, SyntheticBubbleDataset)
+    items = (dset.epoch_params(batch_size, seed) if synthetic
+             else epoch_iterator(dset, batch_size, seed, workers))
+    nchw = lambda a: _h2d(torch.from_numpy(a), device).permute(0, 3, 1, 2).contiguous()
+    while True:
+        with span("data.feed"):
+            item = next(items, None)
+            if item is None:
+                return
+            if synthetic:
+                params, raw = item
+                batch = render_batch(params, raw % num_classes, bucketing, dset.img_size, device)
+            else:
+                (imgs, bimgs), labels, split = bucketing.sort(item["labels"] % num_classes,
+                                                              item["imgs"], item["bimgs"])
+                batch = (nchw(imgs), nchw(bimgs).expand(-1, 3, -1, -1).contiguous(),
+                         _h2d(torch.from_numpy(labels), device), split)
+        yield batch
+
+
+def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """t copied to `device` from pageable memory: the span `data.h2d`."""
+    with span("data.h2d"):
+        return t.to(device)
 
 
 def render_batch(params: np.ndarray, labels: np.ndarray, bucketing: Bucketing, img_size: int,
@@ -111,9 +127,9 @@ def render_batch(params: np.ndarray, labels: np.ndarray, bucketing: Bucketing, i
     """A (B, 5) bubble table and its labels (sorted first, when bucketing
     applies) rendered on `device` as (x_target, x_content, labels, split)."""
     (params,), labels, split = bucketing.sort(labels, params)
-    imgs, bimgs, _ = render_bubble_batch(img_size, torch.from_numpy(params).to(device))
+    imgs, bimgs, _ = render_bubble_batch(img_size, _h2d(torch.from_numpy(params), device))
     return (imgs, bimgs.expand(-1, 3, -1, -1).contiguous(),
-            torch.from_numpy(np.asarray(labels, np.int64)).to(device), split)
+            _h2d(torch.from_numpy(np.asarray(labels, np.int64)), device), split)
 
 
 def main(argv=None) -> str:

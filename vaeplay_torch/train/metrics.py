@@ -13,6 +13,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from vaeplay_torch.parallel.mesh import all_mean
+from vaeplay_torch.utils.profiling import span
 
 Sums = Dict[str, torch.Tensor]
 
@@ -20,15 +21,17 @@ Sums = Dict[str, torch.Tensor]
 def accumulating(step_fn: Callable) -> Callable:
     """Wrap a (state, *args) -> (state, metrics) step into
     (state, acc, count, *args) -> (state, acc', count'), where acc' = acc +
-    metrics on the device and count' = count + 1. Pass acc=None to start."""
+    metrics on the device and count' = count + 1. Pass acc=None to start.
+    The step and its adds are the span `train.step`."""
 
     def call(state, acc: Optional[Sums], count: int, *args) -> Tuple[object, Sums, int]:
-        state, metrics = step_fn(state, *args)
-        if acc is None:
-            acc, count = {k: torch.zeros((), dtype=torch.float32, device=v.device)
-                          for k, v in metrics.items()}, 0
-        for k, v in metrics.items():
-            acc[k] += v.detach().float()
+        with span("train.step"):
+            state, metrics = step_fn(state, *args)
+            if acc is None:
+                acc, count = {k: torch.zeros((), dtype=torch.float32, device=v.device)
+                              for k, v in metrics.items()}, 0
+            for k, v in metrics.items():
+                acc[k] += v.detach().float()
         return state, acc, count + 1
 
     return call

@@ -18,6 +18,9 @@ With compute_dtype bfloat16 both passes run the model under bf16 autocast
 (utils/amp.py) and its outputs are widened to f32 before the losses; pass
 2's ground-truth ellipse params stay f32, as the model's coordinate math
 does (models/bp.py). Parameters, Adam state and losses stay f32.
+
+Host spans (utils/profiling.py): each pass's loss is a `train.forward`,
+its backward a `train.backward`.
 """
 
 from typing import Callable, Dict, Tuple
@@ -28,6 +31,7 @@ from vaeplay_torch.models.bp import ComposeNet
 from vaeplay_torch.ops import losses as L
 from vaeplay_torch.train.state import TrainState
 from vaeplay_torch.utils.amp import autocast
+from vaeplay_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss_cx", "loss_cy", "loss_rest", "trig_loss", "param_loss",
                "pos_trig_loss", "pos_param_loss")
@@ -68,7 +72,8 @@ def loss_phase2(model: ComposeNet, imgs: torch.Tensor, p1_scaled: torch.Tensor,
 
 def _descend(state: TrainState, loss: torch.Tensor) -> None:
     state.optimizer.zero_grad(set_to_none=False)
-    loss.backward()
+    with span("train.backward"):
+        loss.backward()
     state.apply_gradients()
 
 
@@ -86,10 +91,12 @@ def make_bp_train_step(model: ComposeNet,
 
     def train_step(state: TrainState, imgs: torch.Tensor, p1_targets: torch.Tensor,
                    p2_targets: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        total, m1 = loss_phase1(model, imgs, p1_targets, p2_targets, compute_dtype)
+        with span("train.forward"):
+            total, m1 = loss_phase1(model, imgs, p1_targets, p2_targets, compute_dtype)
         _descend(state, total)
-        total, m2 = loss_phase2(model, imgs, L.value_scaled(p1_targets), p2_targets,
-                                compute_dtype)
+        with span("train.forward"):
+            total, m2 = loss_phase2(model, imgs, L.value_scaled(p1_targets), p2_targets,
+                                    compute_dtype)
         _descend(state, total)
         metrics = {**m1, **m2}
         return state, {k: metrics[k].detach() for k in METRIC_KEYS}

@@ -34,6 +34,10 @@ steps. Under bf16 the three nets run in bf16 autocast; their outputs are
 widened to f32, D's sigmoid and softmax run in f32 (models/style_gan.py)
 and the KL, the L1s, every BCE and CE outside autocast, which refuses
 F.binary_cross_entropy. Parameters, Adam state and losses stay f32.
+
+Host spans (utils/profiling.py): each phase's forward is a `train.forward`,
+its backward a `train.backward` (the latent+G phase's autograd.grad and
+backward together).
 """
 
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
@@ -44,6 +48,7 @@ import torch
 from vaeplay_torch.ops import losses as L
 from vaeplay_torch.train.state import StyleGanState
 from vaeplay_torch.utils.amp import autocast
+from vaeplay_torch.utils.profiling import span
 
 # the JAX CLI's AVG_KEYS (cli/train_style_gan.py:28-29)
 AVG_KEYS = ("g_rec_kl_loss", "g_rec_d_loss", "g_rec_pixel_loss", "g_gen_d_loss", "loss_latent",
@@ -102,21 +107,23 @@ def make_style_gan_train_step(e: torch.nn.Module, g: torch.nn.Module, d: torch.n
                 + L.softmax_cross_entropy(typ, labels).mean())
 
     def eg_phase(ss: StyleGanState, x_target, x_content, labels, eps, z_sample, split=None):
-        x_gen = run_g(x_content, z_sample, labels, split)
-        xg = x_gen.detach().requires_grad_()
         d_params = [p for p in d.parameters() if p.requires_grad]
-        for p in d_params:
-            p.requires_grad_(False)
         try:
-            mu, logvar = run_e(x_target)
-            x_rec = run_g(x_content, eps * torch.exp(logvar / 2.0) + mu, labels, split)
-            m = {"g_rec_kl_loss": 0.5 * torch.sum(torch.exp(logvar) + mu ** 2 - logvar - 1.0),
-                 "g_rec_d_loss": d_terms(*run_d(x_rec, x_content), labels, 1.0),
-                 "g_rec_pixel_loss": (x_rec - x_target).abs().mean(),
-                 "g_gen_d_loss": d_terms(*run_d(xg, x_content), labels, 1.0)}
+            with span("train.forward"):
+                x_gen = run_g(x_content, z_sample, labels, split)
+                xg = x_gen.detach().requires_grad_()
+                for p in d_params:
+                    p.requires_grad_(False)
+                mu, logvar = run_e(x_target)
+                x_rec = run_g(x_content, eps * torch.exp(logvar / 2.0) + mu, labels, split)
+                m = {"g_rec_kl_loss": 0.5 * torch.sum(torch.exp(logvar) + mu ** 2 - logvar - 1.0),
+                     "g_rec_d_loss": d_terms(*run_d(x_rec, x_content), labels, 1.0),
+                     "g_rec_pixel_loss": (x_rec - x_target).abs().mean(),
+                     "g_gen_d_loss": d_terms(*run_d(xg, x_content), labels, 1.0)}
             clear_grads(ss.e.optimizer.param_groups[0]["params"])
             clear_grads(ss.g.optimizer.param_groups[0]["params"])
-            sum(m.values()).backward()
+            with span("train.backward"):
+                sum(m.values()).backward()
         finally:
             for p in d_params:
                 p.requires_grad_(True)
@@ -125,18 +132,22 @@ def make_style_gan_train_step(e: torch.nn.Module, g: torch.nn.Module, d: torch.n
 
     def latent_g_phase(ss: StyleGanState, branch, z_sample):
         x_gen, gen_cot, _ = branch
-        xg2 = x_gen.detach().requires_grad_()
-        lat = (run_e(xg2)[0] - z_sample).abs().mean() * 0.5
-        (lat_cot,) = torch.autograd.grad(lat, xg2)
-        x_gen.backward(gen_cot + lat_cot)
+        with span("train.forward"):
+            xg2 = x_gen.detach().requires_grad_()
+            lat = (run_e(xg2)[0] - z_sample).abs().mean() * 0.5
+        with span("train.backward"):
+            (lat_cot,) = torch.autograd.grad(lat, xg2)
+            x_gen.backward(gen_cot + lat_cot)
         ss.g.apply_gradients()
         return ss, {"loss_latent": lat.detach()}
 
     def d_phase(ss: StyleGanState, x_target, x_content, labels, x_rec):
         clear_grads(ss.d.optimizer.param_groups[0]["params"])
-        m = {"d_real_loss": d_terms(*run_d(x_target, x_content), labels, 1.0),
-             "d_fake_loss": d_terms(*run_d(x_rec, x_content), labels, 0.0)}
-        ((m["d_real_loss"] + m["d_fake_loss"]) * 0.5).backward()
+        with span("train.forward"):
+            m = {"d_real_loss": d_terms(*run_d(x_target, x_content), labels, 1.0),
+                 "d_fake_loss": d_terms(*run_d(x_rec, x_content), labels, 0.0)}
+        with span("train.backward"):
+            ((m["d_real_loss"] + m["d_fake_loss"]) * 0.5).backward()
         ss.d.apply_gradients()
         return ss, {k: v.detach() for k, v in m.items()}
 
