@@ -16,8 +16,9 @@ Phases, in order; each raises on failure and nothing is caught:
               or, where it cannot describe them, by the threads' direct
               loads), and time kernel, plain version and the PyTorch
               library call. Then the attention under autograd:
-              the gradients of `SpatialAttention` (the kernel's forward, the
-              recompute backward) against autograd through the plain
+              the gradients of `SpatialAttention` (the forward kernel and the
+              backward kernel, csrc/flash_attention_bwd.cu, each launched
+              once) against autograd through the plain
               version; at the training batch of 8, the forward and the
               gradients against the plain version, then their times. And at
               RefineNet's shape (BC: B 8 and 32, N 258, Dk 32, Dv 256) both
@@ -46,7 +47,13 @@ Phases, in order; each raises on failure and nothing is caught:
               against the plain version in f32, its route (TMA at N 2048
               and 4096, direct at 258 and 1) and the bytes copied (0), and
               the times of the kernel, the plain version and the library
-              call in bf16, with the backend it chose.
+              call in bf16, with the backend it chose. Last the backward
+              kernel at BP's (B 4 and 8, f32; B 8, bf16), BCP's (N 2048 and
+              4096), BC's (N 258) and BE_font's (N 1) shapes in the
+              model's layout: the log-sum-exp the forward kernel writes
+              against the plain one, the gradients against the plain
+              attention_backward, and the kernel's, the plain backward's
+              and SDPA's backward's times beside the kernel's bound.
 3. slice   -- BP inference through the port's test_bp CLI at 512 px, batch 4,
               the full emit-channel pyramid, seeded random weights with every
               attention gamma nonzero: one CLI run that must write a PNG,
@@ -62,7 +69,8 @@ Phases, in order; each raises on failure and nothing is caught:
               test_bp rendering the resumed run dir. Every iteration must
               launch the attention kernel exactly 18 times (9 per pass) and
               every logged loss be finite. Then a warm-up and three timed
-              iterations at PyTorch's defaults, the peak device memory, and
+              iterations at PyTorch's defaults, each launching the forward
+              and the backward kernel 18 times, the peak device memory, and
               a profile of one iteration by kernel group.
 6. train parity -- one two-pass iteration on the card and on the CPU from
               the same weights and batch (128 px, batch 2, a narrow
@@ -290,6 +298,11 @@ PEAK_BYTES_PER_S = 3.35e12
 # one pass of bf16 wgmma for both products.
 ENGINE = "wgmma m64n120k8 + mma.sync m16n8k8, tf32x3"
 ENGINE_BF16 = "wgmma m64n64k16 bf16, both products"
+# The backward kernel's: TF32 tensor cores, three passes for f32 operands and
+# the passes with a nonzero small part for bf16 ones (S, dP one; dV, dK, dQ
+# two); wgmma for dV, dP, dK and the dV kernel's scores, mma.sync for the
+# dK/dQ kernel's scores and dQ.
+ENGINE_BWD = "wgmma m64nNk8 (N 32-256) + mma.sync m16n8k8, tf32x3 (bf16 operands: 1 or 2 passes)"
 TF32_PASSES = 3
 
 # (B, N, Dk, Dv) of the BP attention (models/bp.py: 2048 embedding dims as
@@ -436,6 +449,19 @@ BF16_ATTENTION_TOL = (1e-2, 1e-2)
 BF16_SHAPES = [("BP", (8, 2048, 90, 720), "tma"), ("BCP", (16, 2048, 32, 260), "tma"),
                ("BCP cap", (16, 4096, 32, 260), "tma"), ("BC", (32, 258, 32, 256), "direct"),
                ("BE_font", (32, 1, 32, 256), "direct")]
+# phase 2's backward kernel shapes, (tag, (B, N, Dk, Dv), dtype), in the
+# model's layout: BP at B 4 and 8, BCP's point attention and its cap, BC's
+# RefineNet at N 258 and BE_font's embedding blocks at N 1 (both by the
+# forward's direct route), in f32 and where a model trains in bf16 with
+# attention, in bf16
+BWD_SHAPES = [("BP B4", BP_SHAPE, torch.float32), ("BP", BP_BF16_SHAPE, torch.float32),
+              ("BP bf16", BP_BF16_SHAPE, torch.bfloat16),
+              ("BCP", (BCP_TRAIN_BATCH, BCP_POINTS, 32, 260), torch.float32),
+              ("BCP cap", (BCP_TRAIN_BATCH, 4096, 32, 260), torch.float32),
+              ("BC", (BC_TRAIN_BATCH, 258, 32, 256), torch.float32),
+              ("BC bf16", (BC_TRAIN_BATCH, 258, 32, 256), torch.bfloat16),
+              ("BE_font", (FONT_TRAIN_BATCH, 1, 32, 256), torch.float32),
+              ("BE_font bf16", (FONT_TRAIN_BATCH, 1, 32, 256), torch.bfloat16)]
 # bf16 losses against f32: the JAX package's budget (tests/test_bf16_families.py:
 # 22-29), 5% relative + 0.05
 BF16_BUDGET = (0.05, 0.05)
@@ -662,6 +688,101 @@ def _forward_bound(shape, dtype=torch.float32):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
+def _backward_bound(shape, dtype=torch.float32):
+    """(bound_ms, bound_by, flops) of the attention backward on `dtype`
+    operands at benchmark.core.peaks' rates: the larger of its products,
+    2 B N^2 (3 Dk + 2 Dv), in the passes that keep each f32-accurate (f32
+    operands: three TF32 passes each; bf16 operands: S and dP, products of
+    two bf16 operands, once at the bf16 rate, and dV, dK and dQ, whose P or
+    dS stays f32-accurate, two TF32 passes) and its bytes in that type (q,
+    k, v, out and g read once, dq, dk and dv written once) at the memory
+    rate."""
+    from benchmark.core import peaks
+
+    b, n, dk, dv = shape
+    flops = 2.0 * b * n * n * (3 * dk + 2 * dv)
+    if dtype == torch.float32:
+        t_ops = TF32_PASSES * flops / peaks.PEAK_FLOPS["float32"]
+    else:
+        t_ops = (2.0 * b * n * n * (dk + dv) / peaks.PEAK_FLOPS["bfloat16"]
+                 + 2 * 2.0 * b * n * n * (dv + 2 * dk) / peaks.PEAK_FLOPS["float32"])
+    itemsize = peaks.ITEMSIZE[str(dtype)[6:]]
+    t_bytes = itemsize * b * n * (4 * dk + 4 * dv) / peaks.PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def phase_kernel_backward_times(gpu: str) -> dict:
+    """Phase 2's backward kernel at each of BWD_SHAPES, in the model's layout:
+    the log-sum-exp the forward kernel writes against reference_lse (TOL[f32])
+    and its one-hot flags (differing in under 1e-3 of the rows),
+    the kernel's gradients against attention_backward (f32: GRAD_TOL; bf16:
+    BF16_ATTENTION_TOL, each side rounding once to bf16), and the times of
+    the kernel, the plain attention_backward and the library's backward
+    (scaled_dot_product_attention, scale 1, on position-major copies: a
+    yardstick only) beside the kernel's bound. Returns the kernels line's
+    entry for the backward kernel."""
+    from vaeplay_torch.ops import attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "vaeplay_torch/ops/csrc/flash_attention_bwd.cu",
+             "replaces": "vaeplay_tpu/ops/attention.py:_pallas_attention_bwd (an einsum VJP, no "
+                         "Pallas kernel)", "engine": ENGINE_BWD, "launches": None}
+    for i, (tag, shape, dtype) in enumerate(BWD_SHAPES):
+        b, n, dk, dv = shape
+        key = tag.lower().replace(" ", "_")
+        q, k, v = _qkv(shape, dtype, seed=1200 + i, layout="c")
+        g = _qkv(shape, dtype, seed=1300 + i, layout="c")[2]
+        out = torch.empty(b, dv, n, dtype=dtype, device="cuda").transpose(1, 2)
+        lse = torch.empty(2, b, n, device="cuda")
+        attention.flash_attention(q, k, v, out=out, lse=lse)
+        ref_lse = attention.reference_lse(q, k)
+        held_lse = _worst(lse[0], ref_lse[0], TOL[torch.float32])
+        # the one-hot flags may differ only where a row's sum lies within
+        # rounding of 1 + ONE_HOT
+        flags_differ = float((lse[1] != ref_lse[1]).float().mean())
+        got = attention.flash_attention_backward(q, k, v, out, lse, g)
+        ref = attention.attention_backward(q, k, v, g)
+        torch.cuda.synchronize()
+        tol = GRAD_TOL if dtype == torch.float32 else BF16_ATTENTION_TOL
+        held = max(_worst(x.float(), r.float(), tol) for x, r in zip(got, ref))
+        layouts = all(x.stride(1) == 1 for x in got) or n == 1
+        if held_lse > 1 or flags_differ > 1e-3 or held > 1 or not layouts or not all(
+                bool(torch.isfinite(x).all()) for x in got):
+            raise AssertionError(f"the backward kernel disagrees with attention_backward at "
+                                 f"{tag} {shape} {dtype} (lse {held_lse:.3f}, one-hot flags "
+                                 f"{flags_differ:.2e} differing, gradients {held:.3f} of their "
+                                 f"bounds, channel-major {layouts})")
+        ms = cuda_ms(lambda: attention.flash_attention_backward(q, k, v, out, lse, g), iters=10)
+        plain_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, g), iters=5)
+        q4, k4, v4 = (t.contiguous()[:, None].requires_grad_() for t in (q, k, v))
+        g4, backend = g.contiguous()[:, None], "default"
+        try:
+            o4 = sdpa(q4, k4, v4, scale=1.0)
+            torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True)
+        except RuntimeError:  # no backward kernel of its default backends (N = 1)
+            backend = "MATH"
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            with sdpa_kernel([SDPBackend.MATH]):
+                o4 = sdpa(q4, k4, v4, scale=1.0)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                                         retain_graph=True), iters=5)
+        bound_ms, bound_by, flops = _backward_bound(shape, dtype)
+        print(f"[kernels] flash_attention_bwd {tag} B,N,Dk,Dv={shape} {str(dtype)[6:]}, "
+              f"channel-major, on {gpu}: lse at {held_lse:.3f} of TOL, one-hot rows "
+              f"{int(lse[1].sum())} ({flags_differ:.2e} differing), dq, dk, dv at "
+              f"{held:.3f} of their bound against attention_backward, channel-major; "
+              f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms {library_ms:.4f} "
+              f"({backend} backend), bound_ms {bound_ms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{'3 TF32 passes' if dtype == torch.float32 else 'S and dP bf16, the rest 2 TF32 passes'}), "
+              f"{bound_ms / ms:.1%} of its bound, {plain_ms / ms:.2f}x the plain version")
+        entry.update({f"{key}_shape": list(shape), f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                      f"{key}_library_ms": library_ms, f"{key}_bound_ms": bound_ms,
+                      f"{key}_bound_by": bound_by})
+    return entry
+
+
 def _worst(got: torch.Tensor, ref: torch.Tensor, tol, scale: float = None) -> float:
     """Largest |got - ref| over atol x max |ref| (or x scale) + rtol x |ref|;
     above 1 fails."""
@@ -706,14 +827,15 @@ def _hold_step(tag: str, label: str, ref: tuple, got: tuple, dtype, lr: float,
 
 
 def _grad_check(shape, layout, q_scale, seed) -> None:
-    """spatial_self_attention's gradients (kernel forward, recompute
-    backward) against autograd through the plain version on the same inputs
-    and output gradient."""
+    """spatial_self_attention's gradients (the forward and backward kernels)
+    against autograd through the plain version on the same inputs and output
+    gradient."""
     from vaeplay_torch.ops import attention
 
     q, k, v = _qkv(shape, torch.float32, seed, q_scale, layout)
     g = _qkv(shape, torch.float32, seed + 1000, 1.0, layout)[2]
     before = attention.flash_attention.launches
+    bwd_before = attention.flash_attention_backward.launches
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     attention.spatial_self_attention(qg, kg, vg).backward(g)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -721,6 +843,8 @@ def _grad_check(shape, layout, q_scale, seed) -> None:
     torch.cuda.synchronize()
     if attention.flash_attention.launches != before + 1:
         raise AssertionError("the Function's forward did not launch the kernel once")
+    if attention.flash_attention_backward.launches != bwd_before + 1:
+        raise AssertionError("the Function's backward did not launch the kernel once")
     worst = max(_worst(got, ref, GRAD_TOL) for got, ref in (
         (qg.grad, qr.grad), (kg.grad, kr.grad), (vg.grad, vr.grad)))
     finite = all(bool(torch.isfinite(t.grad).all()) for t in (qg, kg, vg))
@@ -1094,13 +1218,16 @@ def _timed_iterations(gpu: str, dtype: str = "float32", label: str = "train") ->
     batches = [ds.sample_batch(TRAIN_BATCH, batch_seed=s) for s in range(5)]
     for i, batch in enumerate(batches[:4]):
         before = attention.flash_attention.launches
+        bwd_before = attention.flash_attention_backward.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, metrics = step(state, *train_bp.to_device(batch, dev))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        if attention.flash_attention.launches - before != PER_ITERATION:
-            raise AssertionError(f"an iteration did not launch the kernel {PER_ITERATION} times")
+        if (attention.flash_attention.launches - before != PER_ITERATION
+                or attention.flash_attention_backward.launches - bwd_before != PER_ITERATION):
+            raise AssertionError(f"an iteration did not launch the forward and backward kernels "
+                                 f"{PER_ITERATION} times each")
         if not all(bool(torch.isfinite(v)) for v in metrics.values()):
             raise AssertionError(f"non-finite losses: {metrics}")
         if i:
@@ -3539,8 +3666,9 @@ def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> tuple:
     a profile; then one iteration in bf16 and one in f32 on the card from
     the same weights and batch, their seven losses within BF16_BUDGET and
     not all equal (a bf16 request that ran in f32 would match exactly).
-    Returns the kernels' launches over the phase's bf16 runs and their
-    counts by route; the f32 comparison iteration's are not counted."""
+    Returns the forward kernel's launches over the phase's bf16 runs, their
+    counts by route and the backward kernel's launches over the same runs;
+    the f32 comparison iteration's are not counted."""
     from vaeplay_torch.cli import test_bp, train_bp
     from vaeplay_torch.data.bp_data import SyntheticEmitDataset
     from vaeplay_torch.ops import attention
@@ -3582,7 +3710,8 @@ def phase_bp_bf16_train(tmp: str, gpu: str, f32_ms: list) -> tuple:
         losses[dtype] = {k: float(v) for k, v in m.items()}
         del model
         if launches is None:  # the bf16 runs end here
-            launches = attention.flash_attention.launches, dict(attention.flash_attention.routes)
+            launches = (attention.flash_attention.launches, dict(attention.flash_attention.routes),
+                        attention.flash_attention_backward.launches)
     rel, absolute = BF16_BUDGET
     worst, name = max((abs(losses[torch.bfloat16][k] - v) / (rel * abs(v) + absolute), k)
                       for k, v in losses[torch.float32].items())
@@ -4205,8 +4334,8 @@ def phase_mesh(tmp: str, gpu: str) -> tuple:
     16), MESH_ITERATIONS iterations each, over a world of one rank on nccl,
     each beside the same run without --mesh from the same seed: the
     backend, the checkpoint's keys and shapes, the first logged losses and
-    the kernel launches must be the same. Returns the mesh runs' launches
-    and their counts by route."""
+    the kernel launches must be the same. Returns the mesh runs' forward
+    launches, their counts by route and their backward launches."""
     import torch.distributed as dist
 
     from vaeplay_torch.cli import train_bc, train_bcp, train_vae
@@ -4237,11 +4366,12 @@ def phase_mesh(tmp: str, gpu: str) -> tuple:
             str(BCP_TRAIN_BATCH), "--iterations", str(n), "--point_attention"],
             BCP_PER_FORWARD),
     }
-    mesh_launches, mesh_routes = 0, dict.fromkeys(attention.ROUTES, 0)
+    mesh_launches, mesh_routes, mesh_backward = 0, dict.fromkeys(attention.ROUTES, 0), 0
     for name, (cli, keys, args, per_step) in runs.items():
         out = {}
         for label, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
             before = attention.flash_attention.launches
+            bwd_before = attention.flash_attention_backward.launches
             routes = dict(attention.flash_attention.routes)
             t = time.perf_counter()
             cli.mesh_session = watched
@@ -4256,6 +4386,7 @@ def phase_mesh(tmp: str, gpu: str) -> tuple:
             if label == "mesh":
                 for r, c in attention.flash_attention.routes.items():
                     mesh_routes[r] += c - routes[r]
+                mesh_backward += attention.flash_attention_backward.launches - bwd_before
             out[label] = (run, _first_line(run), launched)
             print(f"[mesh] {name} {' '.join(extra) or '(no --mesh)'}: {n} iterations in "
                   f"{time.perf_counter() - t:.1f} s, {launched} kernel launches")
@@ -4276,7 +4407,7 @@ def phase_mesh(tmp: str, gpu: str) -> tuple:
         for run in (run_p, run_m):
             shutil.rmtree(run)
     print(f"[mesh] three --mesh 1x1 trainers over nccl on {gpu}")
-    return mesh_launches, mesh_routes
+    return mesh_launches, mesh_routes, mesh_backward
 
 
 def phase_ring(gpu: str) -> None:
@@ -4388,21 +4519,29 @@ def main(argv) -> int:
         kernel.update(phase_kernels_be_font(gpu))
         kernel_bf16 = phase_kernels_bp_bf16(gpu)
         kernel.update(phase_kernels_bcp_cap(gpu))
+        kernel_bwd = phase_kernel_backward_times(gpu)
     stamp("phases 1-2")
     # launches on the main paths by kernel and route; each path is driven
     # with the counts set to 0 just before it and read just after
     path_routes = dict.fromkeys(attention.ROUTES, 0)
+    path_backward = {}
 
-    def path(label: str, launches: int, routes: dict = None) -> int:
+    def path(label: str, launches: int, routes: dict = None, backward: int = None) -> int:
         routes = dict(attention.flash_attention.routes) if routes is None else routes
+        backward = attention.flash_attention_backward.launches if backward is None else backward
         if sum(routes.values()) != launches or attention.flash_attention.copied_bytes:
             raise AssertionError(f"{label}: {launches} launches, routes {routes}, "
                                  f"{attention.flash_attention.copied_bytes} bytes of k and v "
                                  f"copied")
+        # inference (phase 3) takes no gradient; every other path trains
+        if (backward > 0) is ("phase 3" in label):
+            raise AssertionError(f"{label}: {backward} backward kernel launches")
         for r, c in routes.items():
             path_routes[r] += c
+        path_backward[label] = backward
         print(f"[routes] {label}: " + (", ".join(f"{r} {c}" for r, c in routes.items() if c)
-                                       or "no launch") + "; no copy of k or v")
+                                       or "no launch") + f"; no copy of k or v; backward "
+                                                         f"kernel {backward}")
         return launches
 
     with tempfile.TemporaryDirectory(prefix=".smoke-", dir=ROOT) as tmp:
@@ -4462,6 +4601,8 @@ def main(argv) -> int:
         entry["launches"] = sum(entry["launches_by_route"].values())
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was launched no time on the main paths")
+    kernel_bwd["launches_by_path"] = path_backward
+    kernel_bwd["launches"] = sum(path_backward.values())
     print(f"[routes] the main paths in all: " + ", ".join(f"{r} {c}"
                                                          for r, c in path_routes.items()))
     with strict_f32():
@@ -4485,7 +4626,7 @@ def main(argv) -> int:
         phase_ring(gpu)
         stamp("phase 29")
     print(gpu)
-    print(json.dumps({"kernels": [kernel, kernel_bf16]}))
+    print(json.dumps({"kernels": [kernel, kernel_bf16, kernel_bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

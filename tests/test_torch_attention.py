@@ -1,11 +1,14 @@
 """The port's attention op (vaeplay_torch.ops.attention) against the JAX
 package's: its plain version on the CPU at f32 and with bf16 operands, in
 both input layouts the kernels take, the wrapper's choice of how each
-kernel reads k and v, the arithmetic of both kernels (3xTF32, and bf16 with
-P rounded against the running max) emulated on the CPU, the backward (the
-autograd Function's) against the JAX custom VJP's, and the CUDA kernels on
-a card."""
+kernel reads k and v, the arithmetic of both forward kernels (3xTF32, and
+bf16 with P rounded against the running max) and of the backward kernel
+emulated on the CPU, the log-sum-exp the forward kernels write, the
+backward (the autograd Function's) against the JAX custom VJP's, and the
+CUDA kernels on a card (the backward kernel's own card tests, which import
+no JAX, are tests/test_torch_attention_cuda.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -219,6 +222,127 @@ def test_bf16_kernel_arithmetic_matches_plain(b, n, dk, dv):
     np.testing.assert_allclose(got, ref, atol=2.0 ** -8 * np.abs(ref).max(), rtol=2.0 ** -7)
 
 
+def _bwd_kernel_emulation(q, k, v, g, out, passes: int, bk: int = 128, flags: bool = True):
+    """The backward kernel's arithmetic in numpy (csrc/flash_attention_bwd.cu):
+    the row log-sum-exp and one-hot flags as the forward leaves them, delta =
+    sum_c g out in f32 from `out` as the forward leaves it, then over key
+    tiles of bk: P recomputed from the log-sum-exp (at most 1; for dV in a
+    one-hot row with the log-sum-exp lowered by T = 2^-19 |lse| + 2^-12, the
+    recomputation's rounding: 1 at its max), dS 0 in a one-hot row, and
+    every product (S, dV, dP, dK, dQ) as `passes`
+    TF32 passes summed in f32 (_tf32_product). With 3 passes that is the
+    kernel's 3xTF32 for f32 operands; for bf16 operands, exact in TF32, the
+    passes with a zero small part add nothing, which leaves the kernel's one
+    pass for S and dP and two for dV, dK and dQ (P and dS split). flags=False
+    leaves the one-hot flags out (P from the log-sum-exp alone)."""
+    lse, onehot = attention.reference_lse(torch.from_numpy(q), torch.from_numpy(k)).numpy()
+    onehot = (onehot != 0)[..., None] & flags
+    lift = np.where(onehot, (2.0 ** -19 * np.abs(lse) + 2.0 ** -12)[..., None], 0)
+    delta = (g * out).sum(-1, dtype=np.float32)[..., None]
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for k0 in range(0, q.shape[1], bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        x = _tf32_product(q, kt.transpose(0, 2, 1), passes) - lse[..., None]
+        p = np.exp(np.minimum(x + lift, 0), dtype=np.float32)
+        dv[:, k0:k0 + bk] = _tf32_product(p.transpose(0, 2, 1), g, passes)
+        ds = np.where(onehot, 0, p * (_tf32_product(g, vt.transpose(0, 2, 1), passes) - delta))
+        ds = ds.astype(np.float32)
+        dk[:, k0:k0 + bk] = _tf32_product(ds.transpose(0, 2, 1), q, passes)
+        dq += _tf32_product(ds, kt, passes)
+    return dq, dk, dv
+
+
+# BP's Dk and Dv at a short N, and BC's ragged N 258 (a key tile of 2)
+@pytest.mark.parametrize("b,n,dk,dv", [(1, 256, 90, 720), (2, 258, 32, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_bwd_kernel_arithmetic_matches_plain(b, n, dk, dv, dtype, passes, within):
+    """The backward kernel's passes keep f32 accuracy: its emulation is within
+    1e-5 of attention_backward (of each gradient's largest magnitude, plus
+    1e-5 relative) and of the JAX package's _pallas_attention_bwd (in f32 on
+    the same values); one TF32 pass a product misses even the card's 1e-4
+    (GRAD_TOL). With bf16 operands the kernel takes delta from the forward's
+    bf16 output (P rounded to bf16, the result rounded once), where both
+    references compute the output in f32: dq and dk, which delta reaches,
+    then lie 3.6e-3 to 5.1e-3 from them here and are held at the card's
+    bf16 tolerance of 1e-2; dv is held at 1e-5; and with delta from the f32
+    output the bf16 passes are within 1e-5 on all three."""
+    qn, kn, vn = _qkv(b, n, dk, dv)
+    gn = _grad_out(b, n, dv, "position_major")[0]
+    if dtype == "bfloat16":  # bf16 values, computed on in f32
+        qn, kn, vn, gn = (_bf16_np(a) for a in (qn, kn, vn, gn))
+    out = attention.reference_attention(*(torch.from_numpy(a) for a in (qn, kn, vn))).numpy()
+    refs = [attention.attention_backward(*(torch.from_numpy(a) for a in (qn, kn, vn, gn))),
+            _pallas_attention_bwd(tuple(jnp.asarray(a) for a in (qn, kn, vn)), jnp.asarray(gn))]
+    tols = (1e-5, 1e-5, 1e-5)
+    if dtype == "bfloat16":
+        if within:  # the products alone: delta from the f32 output
+            alone = [torch.from_numpy(x) for x in _bwd_kernel_emulation(qn, kn, vn, gn, out, 3)]
+            for ref in refs:
+                _assert_grads_close(alone, ref, 1e-5)
+        out, tols = _bf16_kernel_emulation(qn, kn, vn), (1e-2, 1e-2, 1e-5)
+    got = [torch.from_numpy(x) for x in _bwd_kernel_emulation(qn, kn, vn, gn, out, passes)]
+    for ref in refs:
+        if within:
+            _assert_grads_close(got, ref, tols)
+        else:  # the gradients held at 1e-5: one pass misses 1e-4 on one at least
+            with pytest.raises(AssertionError):
+                _assert_grads_close(*([x for x, t in zip(seq, tols) if t == 1e-5]
+                                      for seq in (got, ref)), 1e-4)
+
+
+# q = k = scale x unit rows: S's max is each row's own key, the others at
+# least 0.4 scale^2 below, so every row of softmax(S) is one-hot in f32; at
+# scale 30 |S| is 900, at 3000 9e6, where 3xTF32 rounds S by about 4
+@pytest.mark.parametrize("scale", [30.0, 3000.0])
+def test_bwd_kernel_one_hot_rows(scale):
+    """Where every row is one-hot the plain backward's dq and dk are exactly 0
+    (delta = sum_j P dP is then the max's dP itself) and its dv is g. The
+    kernel's emulation, with the forward's one-hot flags, gives the same: dq
+    and dk exactly 0, dv within 1e-5. Without them (P from the log-sum-exp
+    alone), delta = g . out and dP, computed apart, differ by their rounding,
+    and that times k is a gradient where there is none."""
+    rng = np.random.default_rng(5)
+    u = rng.normal(size=(2, 256, 90))
+    qn = kn = (scale * u / np.linalg.norm(u, axis=-1, keepdims=True)).astype(np.float32)
+    vn, gn = (rng.normal(size=(2, 256, 64)).astype(np.float32) for _ in range(2))
+    ref = attention.attention_backward(*(torch.from_numpy(a) for a in (qn, kn, vn, gn)))
+    assert not ref[0].any() and not ref[1].any() and torch.equal(ref[2], torch.from_numpy(gn))
+    lse = attention.reference_lse(torch.from_numpy(qn), torch.from_numpy(kn))
+    assert bool((lse[1] == 1).all())
+    out = attention.reference_attention(*(torch.from_numpy(a) for a in (qn, kn, vn))).numpy()
+    dq, dk, dv = _bwd_kernel_emulation(qn, kn, vn, gn, out, 3)
+    assert not dq.any() and not dk.any()
+    np.testing.assert_allclose(dv, gn, atol=1e-5 * np.abs(gn).max(), rtol=1e-5)
+    dq, dk, _ = _bwd_kernel_emulation(qn, kn, vn, gn, out, 3, flags=False)
+    assert dq.any() and dk.any()
+
+
+@pytest.mark.parametrize("b,n,dk", [(1, 256, 90), (2, 258, 32), (2, 1, 32)])
+def test_reference_lse_is_the_forward_statistics(b, n, dk):
+    """reference_lse, the plain version of what the forward kernels write for
+    the backward, is the log-sum-exp of the unscaled scores: the kernels'
+    running max m and sum l of exp(S - m) over key tiles give m + log(l),
+    and JAX's logsumexp of the same scores agrees; and the one-hot flag,
+    1 where l is within ONE_HOT of 1 (always at N = 1)."""
+    qn, kn, _ = _qkv(b, n, dk, 4)
+    both = attention.reference_lse(torch.from_numpy(qn), torch.from_numpy(kn)).numpy()
+    assert both.shape == (2, b, n) and both.dtype == np.float32
+    got, onehot = both
+    s = qn @ kn.transpose(0, 2, 1)
+    m = np.full(s.shape[:2], -1e30, np.float32)
+    l = np.zeros_like(m)
+    for k0 in range(0, n, 32):  # the f32 kernel's key tiles
+        m_new = np.maximum(m, s[:, :, k0:k0 + 32].max(-1))
+        l = l * np.exp(m - m_new) + np.exp(s[:, :, k0:k0 + 32] - m_new[..., None]).sum(-1)
+        m = m_new
+    np.testing.assert_allclose(got, m + np.log(l), rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jax.nn.logsumexp(jnp.asarray(s), axis=-1)),
+                               rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(onehot, (l <= 1 + attention.ONE_HOT).astype(np.float32))
+    assert n > 1 or onehot.all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_cuda_tensor_takes_the_kernel(monkeypatch, layout):
@@ -269,12 +393,14 @@ def _grad_out(b, n, dv, layout, seed=1):
 
 
 def _assert_grads_close(got, ref, tol):
-    """Each of (dq, dk, dv) within tol of its largest magnitude plus tol
-    relative: ds = (dp - sum(dp * attn)) * attn cancels, so an element's
-    error follows its gradient's scale, not its own value."""
-    for name, x, r in zip("qkv", got, ref):
-        x, r = np.asarray(x.detach().cpu()), np.asarray(r)
-        np.testing.assert_allclose(x, r, atol=tol * np.abs(r).max(), rtol=tol, err_msg=name)
+    """Each of (dq, dk, dv) within tol (one for all, or one each) of its
+    largest magnitude plus tol relative: ds = (dp - sum(dp * attn)) * attn
+    cancels, so an element's error follows its gradient's scale, not its own
+    value."""
+    tols = tol if isinstance(tol, tuple) else (tol,) * len(got)
+    for name, x, r, t in zip("qkv", got, ref, tols):
+        x, r = np.asarray(x.detach().cpu().float()), np.asarray(r, dtype=np.float32)
+        np.testing.assert_allclose(x, r, atol=t * np.abs(r).max(), rtol=t, err_msg=name)
 
 
 # the recompute VJP against the JAX package's, called directly, at f32
@@ -322,30 +448,43 @@ def test_spatial_attention_grads_equal_autograd_of_plain(layout):
                         grads(attention.reference_attention), 1e-5)
 
 
+# f32 at BP's Dk and Dv (ragged N 333); bf16 there and at BC's N 258, held
+# at the bf16 tolerance of 1e-2: the kernel's delta comes from the bf16
+# output (test_bwd_kernel_arithmetic_matches_plain) and each gradient is
+# rounded once to bf16
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,dk,dv,dtype,tol", [
+    (2, 333, 90, 720, torch.float32, 1e-4), (2, 333, 90, 720, torch.bfloat16, 1e-2),
+    (2, 258, 32, 256, torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_cuda_function_gradients(layout):
-    """On a card the Function's forward is the kernel and its backward the
-    recompute VJP; both agree with the JAX package's at f32, TF32 off."""
+def test_cuda_function_gradients(layout, b, n, dk, dv, dtype, tol):
+    """On a card the Function's forward and backward are the kernels; both
+    agree with the JAX package's (in f32 on the same values, TF32 off)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    qn, kn, vn = _qkv(2, 333, 90, 720)
-    gn, g = _grad_out(2, 333, 720, layout)
-    q, k, v = (_in_layout(a, layout).cuda().requires_grad_() for a in (qn, kn, vn))
+    qn, kn, vn = _qkv(b, n, dk, dv)
+    gn = _grad_out(b, n, dv, layout)[0]
+    if dtype == torch.bfloat16:  # bf16 values, the JAX side on them in f32
+        qn, kn, vn, gn = (_bf16_np(a) for a in (qn, kn, vn, gn))
+    q, k, v = (_in_layout(a, layout).to("cuda", dtype).requires_grad_() for a in (qn, kn, vn))
+    g = _in_layout(gn, layout).to("cuda", dtype)
     with pytest.raises(RuntimeError, match="spatial_self_attention"):
         attention.flash_attention(q, k, v)  # the wrapper alone records no gradient
     launches = attention.flash_attention.launches
+    bwd_launches = attention.flash_attention_backward.launches
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         out = attention.spatial_self_attention(q, k, v)
-        out.backward(g.cuda())
+        out.backward(g)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert attention.flash_attention.launches == launches + 1
+    assert attention.flash_attention_backward.launches == bwd_launches + 1
+    assert all(t.grad.dtype == dtype for t in (q, k, v))
     ref_out = _reference_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
-    np.testing.assert_allclose(out.detach().cpu().numpy(), np.asarray(ref_out),
-                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(), np.asarray(ref_out),
+                               atol=tol, rtol=tol)
     ref = _pallas_attention_bwd(tuple(jnp.asarray(a) for a in (qn, kn, vn)), jnp.asarray(gn))
-    _assert_grads_close((q.grad, k.grad, v.grad), ref, 1e-4)
+    _assert_grads_close((q.grad, k.grad, v.grad), ref, tol)

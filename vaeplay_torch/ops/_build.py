@@ -27,12 +27,19 @@ _P, _I, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
 # The C functions of each library: name -> (argtypes, restype).
 SIGNATURES = {
     "flash_attention": {
-        # q, k, v, out, b, n, dk, dv, strides[12], direct, stream (f32)
-        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I64P, _I, _P], _I),
+        # q, k, v, out, lse (or null), b, n, dk, dv, strides[12], direct, stream (f32)
+        "flash_attention_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64P, _I, _P], _I),
     },
     "flash_attention_bf16": {
         # the same arguments, bf16 tensors
-        "flash_attention_fwd_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I64P, _I, _P], _I),
+        "flash_attention_fwd_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64P, _I, _P], _I),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, out, g, lse, delta, dq_acc, dk_acc, dq, dk, dv, b, n, dk, dv,
+        # strides[24], stream
+        "flash_attention_bwd": ([_P] * 12 + [_I, _I, _I, _I, _I64P, _P], _I),
+        # the same arguments, bf16 tensors (lse, delta, dq_acc, dk_acc f32)
+        "flash_attention_bwd_bf16": ([_P] * 12 + [_I, _I, _I, _I, _I64P, _P], _I),
     },
 }
 

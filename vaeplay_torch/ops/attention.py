@@ -10,10 +10,22 @@ Function, whose forward sends a CPU tensor to the plain version
 `reference_attention` and a CUDA tensor to a hand-written kernel (through
 `flash_attention`): f32 operands to `csrc/flash_attention.cu` (3xTF32), bf16
 operands to `csrc/flash_attention_bf16.cu` (bf16 wgmma, the TPU kernel's
-default arithmetic), for every N. There is no fallback: the kernel launches
-or the call raises. Its backward, on either device, is `attention_backward`:
-the JAX package's recompute VJP (`_pallas_attention_bwd`) as plain f32
-batched matrix products.
+default arithmetic), for every N. Its backward sends a CPU tensor to
+`attention_backward`, the JAX package's recompute VJP
+(`_pallas_attention_bwd`) as plain f32 batched matrix products, and a CUDA
+tensor to the hand-written backward `csrc/flash_attention_bwd.cu` (through
+`flash_attention_backward`): the same gradients with f32-accurate products
+on the tensor cores and no N x N buffer, P recomputed from the row
+log-sum-exp that the forward kernel writes when a gradient is needed, with
+a flag on each row whose softmax is one-hot (ONE_HOT): there the backward
+takes dS as 0 and P as 1 at the row's max, as the plain version has them,
+since a recomputed score differs from the forward's by a rounding that
+large unscaled scores make larger than 1. One departure with bf16 operands: the kernel takes delta = g . out from the
+forward's bf16 output, where the plain version recomputes the output in
+f32, so its dq and dk lie up to about 5e-3 of their largest magnitude from
+the plain ones (dv, which delta does not reach, agrees to f32 rounding).
+There is no fallback on a CUDA tensor: a kernel launches or the call
+raises.
 
 Shapes are (B, N, C) throughout. `flash_attention` takes each of q, k, v in
 either of two layouts: position-major (channel stride 1, a contiguous
@@ -47,6 +59,8 @@ _KERNELS = {torch.float32: ("flash_attention", "flash_attention_fwd"),
             torch.bfloat16: ("flash_attention_bf16", "flash_attention_fwd_bf16")}
 # the launch counts by route (flash_attention.routes)
 ROUTES = tuple(f"{str(dt)[6:]}/{r}" for dt in _KERNELS for r in ("tma", "direct"))
+# dtype -> C function of the backward (library flash_attention_bwd)
+_BACKWARD = {torch.float32: "flash_attention_bwd", torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -66,6 +80,22 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.bmm(attn, v.to(ct)).to(v.dtype)
 
 
+# a row of softmax(S) is one-hot where its other keys hold under ONE_HOT of
+# its sum of exp(S - max), the max's own term being 1 (csrc/hopper.cuh)
+ONE_HOT = 2.0 ** -20
+
+
+def reference_lse(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Plain version of what the forward kernels write for the backward, a
+    (2, B, N) in f32 (f64 for f64 inputs): each query row's log of sum_j
+    exp(q_i . k_j), and 1 where the row is one-hot (ONE_HOT), else 0."""
+    ct = _compute_dtype(q)
+    s = torch.bmm(q.to(ct), k.to(ct).transpose(1, 2))
+    m = s.amax(dim=-1, keepdim=True)
+    sums = torch.exp(s - m).sum(dim=-1)
+    return torch.stack((m[..., 0] + torch.log(sums), (sums <= 1 + ONE_HOT).to(ct)))
+
+
 def _channel_major(name: str, t: torch.Tensor) -> bool:
     """False when t's channels are contiguous, True when its positions are;
     raises for any other layout."""
@@ -78,6 +108,13 @@ def _channel_major(name: str, t: torch.Tensor) -> bool:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _check_operands(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention: the kernel wrapper records no gradient; call "
+                           "spatial_self_attention, whose autograd Function has the backward")
+
+
+def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention: {name} is on {t.device}, not a CUDA device")
@@ -96,9 +133,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"0 < B <= 65535; got q {tuple(q.shape)}, v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _channel_major(name, t)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("flash_attention: the kernel wrapper records no gradient; call "
-                           "spatial_self_attention, whose autograd Function has the backward")
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    b, n, _ = q.shape
+    if (lse.shape != (2, b, n) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be a contiguous {(2, b, n)} float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
 
 
 def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
@@ -148,26 +190,53 @@ def kernel_operands(k: torch.Tensor, v: torch.Tensor):
     return out[0], out[1], "tma"
 
 
-_FUNCTIONS = {}  # dtype -> its kernel's C function, bound at first use
-_STRIDES = {}  # the 12 strides of a call -> their ctypes array, built once
+_FUNCTIONS = {}  # (library, C function) -> the function, bound at first use
+_STRIDES = {}  # the strides of a call -> their ctypes array, built once
 
 
-def _kernel(dtype: torch.dtype):
-    fn = _FUNCTIONS.get(dtype)
+def _function(library: str, function: str):
+    fn = _FUNCTIONS.get((library, function))
     if fn is None:
-        library, function = _KERNELS[dtype]
-        fn = _FUNCTIONS[dtype] = getattr(_build.load(library), function)
+        fn = _FUNCTIONS[library, function] = getattr(_build.load(library), function)
     return fn
 
 
+def _strides(*tensors: torch.Tensor):
+    key = sum((t.stride() for t in tensors), ())
+    strides = _STRIDES.get(key)
+    if strides is None:
+        strides = _STRIDES[key] = (ctypes.c_longlong * len(key))(*key)
+    return strides
+
+
+def _call(name: str, fn, device: torch.device, *args) -> None:
+    """fn(*args, the device's current stream) on that device; raises on a
+    CUDA error."""
+    index = device.index
+    # the current stream's handle (torch.cuda.current_stream(index).cuda_stream
+    # without building a Stream object: a few microseconds a call)
+    args += (torch._C._cuda_getCurrentRawStream(index),)
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel of q's dtype on PyTorch's current stream and return
     `out` (by default a new contiguous (B, N, Dv)), written by the kernel in
-    that dtype. CUDA tensors only; raises on anything the kernels do not
-    take. `flash_attention.launches` counts the launches, `.routes` them by
-    dtype and route (ROUTES), `.copied_bytes` the bytes of operand copies;
-    `reset_counts()` sets all three to 0."""
+    that dtype; where `lse` (a contiguous f32 (2, B, N)) is given, the
+    kernel also writes into it what the backward reads, as reference_lse
+    gives it: each query row's log-sum-exp, and its one-hot flag.
+    CUDA tensors only; raises on anything the kernels do not take.
+    `flash_attention.launches` counts the launches, `.routes` them by dtype
+    and route (ROUTES), `.copied_bytes` the bytes of operand copies;
+    `reset_counts()` sets them to 0."""
     _check(q, k, v)
     b, n, dk = q.shape
     dv = v.shape[2]
@@ -175,45 +244,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
     else:
         _check_out(out, v)
+    if lse is not None:
+        _check_lse(lse, q)
     k_in, v_in, route = kernel_operands(k, v)
-    fn = _kernel(q.dtype)
-    key = q.stride() + k_in.stride() + v_in.stride() + out.stride()
-    strides = _STRIDES.get(key)
-    if strides is None:
-        strides = _STRIDES[key] = (ctypes.c_longlong * 12)(*key)
-    index = q.device.index
-    # the current stream's handle (torch.cuda.current_stream(index).cuda_stream
-    # without building a Stream object: a few microseconds a call)
-    args = (q.data_ptr(), k_in.data_ptr(), v_in.data_ptr(), out.data_ptr(), b, n, dk, dv, strides,
-            int(route == "direct"), torch._C._cuda_getCurrentRawStream(index))
-    if index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+    _call("flash_attention", _function(*_KERNELS[q.dtype]), q.device, q.data_ptr(),
+          k_in.data_ptr(), v_in.data_ptr(), out.data_ptr(),
+          None if lse is None else lse.data_ptr(), b, n, dk, dv,
+          _strides(q, k_in, v_in, out), int(route == "direct"))
     flash_attention.launches += 1
     flash_attention.routes[f"{str(q.dtype)[6:]}/{route}"] += 1
     return out
 
 
+def _gradient_channel_major(like: torch.Tensor) -> bool:
+    """Whether the gradient of `like` is made channel-major (the transpose
+    view of a contiguous (B, C, N)): where `like` is, so that the NCHW
+    convolution behind it takes the gradient with no copy."""
+    return like.stride(2) != 1 and like.stride(1) == 1
+
+
+def _grad_buffer(like: torch.Tensor) -> torch.Tensor:
+    """An empty gradient for `like`, in the layout attention_backward gives."""
+    b, n, c = like.shape
+    if _gradient_channel_major(like):
+        return torch.empty((b, c, n), dtype=like.dtype, device=like.device).transpose(1, 2)
+    return torch.empty((b, n, c), dtype=like.dtype, device=like.device)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor):
+    """(dq, dk, dv) of softmax(q kᵀ) v for the output gradient g, by the
+    hand-written backward of q's dtype on PyTorch's current stream: `out`
+    and `lse` are what flash_attention wrote for these q, k, v (P is
+    recomputed from lse, delta from out and g: with bf16 operands the bf16
+    out, see the module's note). q, k, v as flash_attention
+    takes them, g any strides; each gradient has its input's dtype and, where
+    that input is channel-major, its layout. CUDA tensors only; raises on
+    anything the kernel does not take. `flash_attention_backward.launches`
+    counts the calls; `reset_counts()` sets it to 0."""
+    _check_operands(q, k, v)
+    _check_lse(lse, q)
+    b, n, dk = q.shape
+    dv = v.shape[2]
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != (b, n, dv) or t.dtype != v.dtype or t.device != v.device:
+            raise ValueError(f"flash_attention_backward: {name} must be {(b, n, dv)} {v.dtype} "
+                             f"on {v.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    dq, dk_, dv_ = _grad_buffer(q), _grad_buffer(k), _grad_buffer(v)
+    # f32 scratch, written by the kernel: delta and the two row offsets of S
+    # (3, B, N), and dq and dk summed
+    # over the blocks that share them (B, N, Dk rounded up to a multiple of 8)
+    delta = torch.empty((3, b, n), dtype=torch.float32, device=q.device)
+    dq_acc, dk_acc = torch.empty((2, b, n, -(-dk // 8) * 8), dtype=torch.float32,
+                                 device=q.device)
+    _call("flash_attention_backward", _function("flash_attention_bwd", _BACKWARD[q.dtype]),
+          q.device, *(t.data_ptr() for t in (q, k, v, out, g, lse, delta, dq_acc, dk_acc, dq, dk_,
+                                              dv_)),
+          b, n, dk, dv, _strides(q, k, v, out, g, dq, dk_, dv_))
+    flash_attention_backward.launches += 1
+    return dq, dk_, dv_
+
+
 def reset_counts() -> None:
-    """Sets flash_attention's launch, route and copy counts to 0."""
+    """Sets flash_attention's launch, route and copy counts and
+    flash_attention_backward's launch count to 0."""
     flash_attention.launches = 0
     flash_attention.routes = dict.fromkeys(ROUTES, 0)
     flash_attention.copied_bytes = 0
+    flash_attention_backward.launches = 0
 
 
 reset_counts()
 
 
 def _bmm_like(like: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in the layout of `like`: where `like` is channel-major, computed
-    as (bᵀ aᵀ)ᵀ, so the result is the transpose view of a contiguous
-    (B, C, N) and the NCHW convolution behind it takes its gradient with no
-    copy."""
-    if like.stride(2) != 1 and like.stride(1) == 1:
+    """a @ b in the layout of `like`'s gradient: channel-major computed as
+    (bᵀ aᵀ)ᵀ."""
+    if _gradient_channel_major(like):
         return torch.bmm(b.transpose(1, 2), a.transpose(1, 2)).transpose(1, 2)
     return torch.bmm(a, b)
 
@@ -237,26 +344,38 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class SpatialAttention(torch.autograd.Function):
-    """softmax(q kᵀ) v with the kernel's forward on a CUDA tensor, the plain
-    version on a CPU tensor, and `attention_backward` on both. The forward
-    saves only q, k and v. Under a bf16 autocast the plain version computes
-    as the bf16 kernel does: bf16 operands, f32 scores and sums, P rounded
-    to bf16."""
+    """softmax(q kᵀ) v: on a CPU tensor the plain version and
+    `attention_backward` (the forward saves q, k and v); on a CUDA tensor
+    the forward kernel and the backward kernel (`flash_attention_backward`).
+    Where a gradient is needed the CUDA forward also has the kernel write
+    each row's log-sum-exp and one-hot flag (reference_lse), and saves them
+    with q, k, v and the output; without
+    one it writes and saves nothing more. Under a bf16 autocast the plain
+    version computes as the bf16 kernel does: bf16 operands, f32 scores and
+    sums, P rounded to bf16."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
             with torch.autocast("cpu", enabled=False):  # the kernels' arithmetic
                 return reference_attention(q, k, v)
         b, n, dv = v.shape
         out = torch.empty((b, dv, n), dtype=v.dtype, device=v.device).transpose(1, 2)
-        return flash_attention(q, k, v, out=out)
+        if not any(ctx.needs_input_grad):
+            return flash_attention(q, k, v, out=out)
+        lse = torch.empty((2, b, n), dtype=torch.float32, device=v.device)
+        flash_attention(q, k, v, out=out, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     @once_differentiable  # attention_backward works in place on its N x N buffers
     def backward(ctx, g: torch.Tensor):
-        return attention_backward(*ctx.saved_tensors, g)
+        saved = ctx.saved_tensors
+        if len(saved) == 3:  # the CPU's plain forward
+            return attention_backward(*saved, g)
+        return flash_attention_backward(*saved, g)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -107,6 +107,8 @@ struct Params {
   CUtensorMap k_map, v_map;  // K and V as (N, C, B) tensors (the TMA route)
   const float *q, *k, *v;
   float* out;
+  float* lse;                // (B, N) row log-sum-exp, or null: not written
+  float* onehot;             // (B, N) 1 where the row is one-hot, else 0 (with lse)
   int64_t sq[3], sk[3], sv[3], so[3];  // (batch, position, channel) strides, elements
   int n, dk, dv;
   int bdv;                   // value columns per block, a multiple of 8
@@ -456,20 +458,32 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (row1 < n) ob[row1 * p.so[1] + col * p.so[2]] = acc[j][2 + e] * inv1;
     }
   }
+  // each row's log-sum-exp, for the backward: once a row (column group 0,
+  // the first value tile, one thread of the quad)
+  if (p.lse != nullptr && wc == 0 && t == 0 && blockIdx.y == 0) {
+    if (row0 < n) p.lse[b * n + row0] = m[0] + logf(l[0]);
+    if (row1 < n) p.lse[b * n + row1] = m[1] + logf(l[1]);
+    if (row0 < n) p.onehot[b * n + row0] = l[0] <= 1.f + ONE_HOT ? 1.f : 0.f;
+    if (row1 < n) p.onehot[b * n + row1] = l[1] <= 1.f + ONE_HOT ? 1.f : 0.f;
+  }
 }
 
 }  // namespace
 
 // Returns a cudaError_t value; 0 is success. All four tensors are f32.
-// strides: 12 element strides, (batch, position, channel) of q, k, v and out
+// lse: null, or a contiguous f32 (2, B, N) for the backward: plane 0
+// receives each query row's log-sum-exp (max + log of the sum), plane 1 1
+// where the row is one-hot (its other keys hold under ONE_HOT of its sum of
+// exp(S - max), the max's own term being 1), else 0. strides: 12 element
+// strides, (batch, position, channel) of q, k, v and out
 // in turn. direct = 0: k and v are read by the TMA engine and must be
 // channel-major (position stride 1) with their address and channel and
 // batch strides multiples of 16 bytes, else the call returns
 // cudaErrorInvalidValue and launches nothing; direct = 1: the threads load
 // them, from any strides. The caller has checked shapes.
 extern "C" int flash_attention_fwd(const float* q, const float* k, const float* v, float* out,
-                                   int b, int n, int dk, int dv, const long long* strides,
-                                   int direct, void* stream) {
+                                   float* lse, int b, int n, int dk, int dv,
+                                   const long long* strides, int direct, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || dk < 1 || dk > MAX_DK || dv < 1)
     return int(cudaErrorInvalidValue);
   Params p{};
@@ -477,6 +491,8 @@ extern "C" int flash_attention_fwd(const float* q, const float* k, const float* 
   p.k = k;
   p.v = v;
   p.out = out;
+  p.lse = lse;
+  p.onehot = lse == nullptr ? nullptr : lse + int64_t(b) * n;
   for (int i = 0; i < 3; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[3 + i];

@@ -98,6 +98,8 @@ struct Params {
   CUtensorMap k_map, v_map;  // K and V as (N, C, B) tensors (the TMA route)
   const bf16 *q, *k, *v;
   bf16* out;
+  float* lse;  // (B, N) row log-sum-exp in f32, or null: not written
+  float* onehot;  // (B, N) 1 where the row is one-hot, else 0 (with lse)
   int64_t sq[3], sk[3], sv[3], so[3];  // (batch, position, channel) strides, elements
   int n, dk, dv;
   int chunks, tiles;  // value chunks in all, ceil(Dv / CHUNK); value tiles (gridDim.y)
@@ -390,20 +392,32 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (row1 < n) ob[row1 * p.so[1] + col * p.so[2]] = to_bf16(acc[c][j][2 + e] / l1);
       }
   }
+  // each row's log-sum-exp in f32 (l is the sum of P before its rounding),
+  // for the backward: once a row (the first value tile, one thread of the quad)
+  if (p.lse != nullptr && t == 0 && blockIdx.y == 0) {
+    if (row0 < n) p.lse[b * n + row0] = m0 + logf(l0);
+    if (row1 < n) p.lse[b * n + row1] = m1 + logf(l1);
+    if (row0 < n) p.onehot[b * n + row0] = l0 <= 1.f + ONE_HOT ? 1.f : 0.f;
+    if (row1 < n) p.onehot[b * n + row1] = l1 <= 1.f + ONE_HOT ? 1.f : 0.f;
+  }
 }
 
 }  // namespace
 
 // Returns a cudaError_t value; 0 is success. All four tensors are bf16.
-// strides: 12 element strides, (batch, position, channel) of q, k, v and out
+// lse: null, or a contiguous f32 (2, B, N) for the backward: plane 0
+// receives each query row's log-sum-exp (max + log of the sum), plane 1 1
+// where the row is one-hot (its other keys hold under ONE_HOT of its sum of
+// exp(S - max), the max's own term being 1), else 0. strides: 12 element
+// strides, (batch, position, channel) of q, k, v and out
 // in turn. direct = 0: k and v are read by the TMA engine and must be
 // channel-major (position stride 1) with their address and channel and
 // batch strides multiples of 16 bytes, else the call returns
 // cudaErrorInvalidValue and launches nothing; direct = 1: the threads load
 // them, from any strides. The caller has checked shapes.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                                        int b, int n, int dk, int dv, const long long* strides,
-                                        int direct, void* stream) {
+                                        float* lse, int b, int n, int dk, int dv,
+                                        const long long* strides, int direct, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || dk < 1 || dk > MAX_DK || dv < 1)
     return int(cudaErrorInvalidValue);
   Params p{};
@@ -411,6 +425,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.out = static_cast<bf16*>(out);
+  p.lse = lse;
+  p.onehot = lse == nullptr ? nullptr : lse + int64_t(b) * n;
   for (int i = 0; i < 3; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[3 + i];

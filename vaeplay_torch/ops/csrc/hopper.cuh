@@ -19,6 +19,12 @@ namespace hopper {
 
 constexpr int MAX_DEVICES = 64;
 
+// A row of softmax(S) is one-hot where its other keys hold under ONE_HOT of
+// its sum of exp(S - max), the max's own term being 1. The forward kernels
+// flag such rows for the backward, which takes their P as exactly one-hot
+// and their dS as 0 (flash_attention_bwd.cu's note on the recomputed scores).
+constexpr float ONE_HOT = 0x1p-20f;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
