@@ -1,11 +1,15 @@
 """The manifest and the files it names: every part is found by name, the
-manifest keeps to the benchmark's contract, and a configuration, a cell and
-a per-layer metric are added as new files and new entries alone."""
+manifest keeps to the benchmark's contract, and a configuration, a cell, a
+per-layer metric and a model are added as new files and new entries alone."""
 
 import hashlib
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
+import xml.etree.ElementTree as ET
 
 import pytest
 import torch
@@ -14,7 +18,7 @@ from benchmark.core.manifest import BENCH_DIR, ROOT, find_cell, load_manifest, r
 from benchmark.core.record import RunRecord
 from benchmark.drivers.common import modules
 from benchmark.harness import run_cell
-from benchmark.tests.tiny import TINY_CONFIG, TINY_TRAFFIC
+from benchmark.tests.tiny import TINY_TRAFFIC, tiny_preset
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -82,7 +86,7 @@ def test_a_new_config_cell_and_metric_are_new_files_alone(tmp_path):
     before = _digests(bench)
 
     config = json.loads((bench / "configs" / "bp_512.json").read_text())
-    config.update(TINY_CONFIG["bp_512"])
+    config.update(tiny_preset("bp_512"))
     (bench / "configs" / "bp_tiny.json").write_text(json.dumps(config))
     traffic = json.loads((bench / "traffic" / "train_b8_f32.json").read_text())
     traffic.update(TINY_TRAFFIC["train_loop"])
@@ -117,3 +121,102 @@ def test_a_reader_finds_nothing_and_says_so():
     for m in MANIFEST["per_layer"]:
         if m["source"] == "device_trace":
             assert reader(m["name"])(empty) is None, m["name"]
+
+
+# The files a toy model brings (a two-layer perceptron), laid out as they sit
+# under benchmark/; nothing imports them from there.
+TOY_FILES = BENCH_DIR / "tests" / "toy_model"
+TOY = "toy_train"
+
+
+def _with_toy(root, leave_out=()):
+    """Lay the toy model's files, less `leave_out`, into the benchmark copied
+    to `root`, and add its manifest entries; the digests of the copy's files
+    before."""
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    bench = root / "benchmark"
+    shutil.copytree(BENCH_DIR, bench, ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digests(bench)
+    for src in TOY_FILES.rglob("*"):
+        rel = src.relative_to(TOY_FILES)
+        if not src.is_file() or "__pycache__" in rel.parts or rel.as_posix() in leave_out:
+            continue
+        assert not (bench / rel).exists(), f"{rel} is not a new file"
+        (bench / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src, bench / rel)
+    manifest = load_manifest(root)
+    manifest["configs"].append({"name": "toy", "source": "a test", "reduced": [],
+                                "file": "benchmark/configs/toy.json", "why": "a test"})
+    manifest["workloads"].append({"name": TOY, "config": "toy", "traffic": "train_toy_f32",
+                                  "chips": 1, "why": "a test"})
+    for m in manifest["end_to_end"] + manifest["per_layer"]:
+        if m["name"] in ("train_samples_per_s", "data_wait_ms.train"):
+            m["workloads"].append(TOY)
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return before
+
+
+def _pytest_in(root, cases):
+    """Run the copy's own tests `cases` (ids under benchmark/tests) in a
+    process that finds the copy's `benchmark` package first; each case's
+    outcome and failure text, by id."""
+    junit = root / "junit.xml"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_")}
+    env["PYTHONPATH"] = os.pathsep.join([str(root), str(ROOT), env.get("PYTHONPATH", "")])
+    out = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                          f"--junitxml={junit}", *(f"benchmark/tests/{c}" for c in cases)],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert junit.is_file(), out.stdout[-3000:] + out.stderr[-3000:]
+    outcomes = {}
+    for case in ET.parse(junit).getroot().iter("testcase"):
+        bad = next((e for e in case if e.tag in ("failure", "error")), None)
+        skipped = case.find("skipped") is not None
+        outcomes[f"{case.get('classname').split('.')[-1]}.py::{case.get('name')}"] = (
+            "skipped" if skipped else "passed" if bad is None else "failed",
+            "" if bad is None else f"{bad.get('message', '')} {bad.text or ''}")
+    return outcomes
+
+
+def test_a_new_model_is_new_files_alone(tmp_path):
+    """A toy model's system, reference, configuration, traffic, limits, tiny
+    preset and planted faults, and its manifest entries: in a copy, the
+    benchmark's own tests find every part by name, run it correct, see a
+    planted fault and the control fail, and import its reference without the
+    port; no file of the benchmark is edited."""
+    before = _with_toy(tmp_path)
+    runs = "test_bench_runs.py::"
+    cases = [f"test_bench_manifest.py::test_every_part_of_a_cell_is_found_by_name[{TOY}]",
+             "test_bench_manifest.py::test_the_manifest_keeps_to_the_contract",
+             f"{runs}test_a_cell_runs_and_is_correct[{TOY}]",
+             f"{runs}test_every_cell_has_faults_of_its_own[{TOY}]",
+             *(f"{runs}test_a_broken_timed_path_is_not_correct[{TOY}-{f}]"
+               for f in ("state_unchanged", "half_batch", "row_swapped")),
+             f"{runs}test_the_control_is_not_correct[{TOY}]",
+             f"{runs}test_the_reference_imports_nothing_of_the_port"]
+    outcomes = _pytest_in(tmp_path, cases)
+    assert outcomes == {c: ("passed", "") for c in cases}, outcomes
+    after = _digests(tmp_path / "benchmark")
+    assert {p: d for p, d in after.items() if p in before} == before  # nothing edited
+
+
+def test_a_model_without_its_test_files_fails_by_name(tmp_path):
+    """The toy model without its tiny preset and its planted faults: the
+    benchmark's tests still collect, and the cases that need those files
+    fail, naming them; the others pass."""
+    preset, planted = "tests/tiny/toy.json", "tests/faults/toy.py"
+    _with_toy(tmp_path, leave_out=(preset, planted))
+    runs = "test_bench_runs.py::"
+    expect = {f"test_bench_manifest.py::test_every_part_of_a_cell_is_found_by_name[{TOY}]": None,
+              f"{runs}test_every_cell_has_faults_of_its_own[bp_train_bf16]": None,
+              f"{runs}test_every_cell_has_faults_of_its_own[{TOY}]": planted,
+              f"{runs}test_a_cell_runs_and_is_correct[{TOY}]": preset,
+              f"{runs}test_a_broken_timed_path_is_not_correct[{TOY}-state_unchanged]": preset,
+              f"{runs}test_the_control_is_not_correct[{TOY}]": preset}
+    outcomes = _pytest_in(tmp_path, list(expect))
+    assert set(outcomes) == set(expect), outcomes
+    for case, missing in expect.items():
+        status, text = outcomes[case]
+        if missing is None:
+            assert status == "passed", (case, text)
+        else:
+            assert status == "failed" and f"benchmark/{missing}" in text, (case, text)

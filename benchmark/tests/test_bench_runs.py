@@ -15,11 +15,16 @@ import torch
 
 from benchmark.control import infer_readings, train_readings
 from benchmark.core.compare import judge
-from benchmark.core.manifest import BENCH_DIR, ROOT, load_manifest
+from benchmark.core.manifest import BENCH_DIR, ROOT, find_cell, load_manifest
+from benchmark.tests import faults
 from benchmark.tests.tiny import run_tiny, tiny_cell
 
 CELLS = [w["name"] for w in load_manifest()["workloads"]]
-TRAIN = [c for c in CELLS if tiny_cell(c).traffic["driver"] == "train_loop"]
+FOUND = {c: find_cell(c) for c in CELLS}
+TRAIN = [c for c in CELLS if FOUND[c].traffic["driver"] == "train_loop"]
+SYSTEMS = {}  # each system of the manifest: its first cell
+for _cell in CELLS:
+    SYSTEMS.setdefault(FOUND[_cell].config["system"], _cell)
 CPU = torch.device("cpu")
 
 
@@ -41,58 +46,27 @@ def test_a_traced_run_reports_per_layer_metrics_only():
     assert "window_s" in result["device"] and "breakdown" in result
 
 
-def _half_rows(*tensors):
-    return [t[: t.shape[0] // 2] for t in tensors]
+FAULTS = [(c, f) for c in TRAIN + [c for c in CELLS if c not in TRAIN]
+          for f in faults.faults_of(FOUND[c])]
 
 
-def _swap(t):
-    return torch.cat([t[:-1], t[:1]]) if t.dim() > 1 and t.shape[0] > 1 else t
-
-
-def plant(monkeypatch, cell: str, fault: str) -> None:
-    """Break the program's timed path underneath the harness."""
-    import vaeplay_torch.cli.train_style_gan as sg_cli
-    import vaeplay_torch.models.bp as bp_model
-    import vaeplay_torch.train.steps_bp as steps_bp
-    import vaeplay_torch.train.steps_style_gan as steps_sg
-
-    if fault == "state_unchanged":
-        monkeypatch.setattr(torch.optim.Adam, "step", lambda self, closure=None: None)
-    elif fault == "half_batch" and cell.startswith("bp_train"):
-        for name in ("loss_phase1", "loss_phase2"):
-            real = getattr(steps_bp, name)
-            monkeypatch.setattr(steps_bp, name, lambda m, i, a, b, d, real=real:
-                                real(m, *_half_rows(i, a, b), d))
-    elif fault == "half_batch" and cell.startswith("style_gan"):
-        real = sg_cli.render_batch
-        monkeypatch.setattr(sg_cli, "render_batch", lambda *a: (
-            lambda xt, xc, lab, split: (*_half_rows(xt, xc, lab), None))(*real(*a)))
-    elif fault == "row_swapped" and cell.startswith("bp_train"):
-        real = steps_bp._f32
-        monkeypatch.setattr(steps_bp, "_f32",
-                            lambda preds: {k: _swap(v) for k, v in real(preds).items()})
-    elif fault == "row_swapped" and cell.startswith("style_gan"):
-        monkeypatch.setattr(steps_sg, "_widen", lambda t: _swap(t.float()))
-    elif cell.startswith("bp_infer"):
-        real = bp_model.ComposeNet.forward
-        if fault == "half_batch":
-            forward = lambda self, x: {k: torch.cat([v, v])[: x.shape[0]]
-                                       for k, v in real(self, x[: x.shape[0] // 2]).items()}
-        else:
-            forward = lambda self, x: {k: _swap(v) for k, v in real(self, x).items()}
-        monkeypatch.setattr(bp_model.ComposeNet, "forward", forward)
-    else:
-        raise ValueError((cell, fault))
-
-
-FAULTS = ([(c, f) for c in TRAIN for f in ("state_unchanged", "half_batch", "row_swapped")]
-          + [("bp_infer_f32", f) for f in ("half_batch", "row_swapped")])
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_faults_of_its_own(cell):
+    """A cell's limits never run without faults planted by its system's
+    file: tests/faults/<system>.py, with faults for the cell's driver."""
+    c = FOUND[cell]
+    system, driver = c.config["system"], c.traffic["driver"]
+    path = faults.path_of(system).relative_to(ROOT)
+    own = faults.module_of(system)
+    assert own is not None, f"system {system!r} of {cell} has no planted faults: {path} is missing"
+    assert own.FAULTS.get(driver), f"{path} plants no fault in {driver} cells such as {cell}"
 
 
 @pytest.mark.parametrize("cell, fault", FAULTS)
 def test_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
-    plant(monkeypatch, cell, fault)
-    result, lines = run_tiny(cell)
+    c = tiny_cell(cell)
+    faults.plant(monkeypatch, c, fault)
+    result, lines = run_tiny(cell, cell=c)
     assert not result["correct"], lines
 
 
@@ -108,8 +82,9 @@ def test_the_control_is_not_correct(cell):
 
 
 def test_a_run_loads_neither_jax_nor_the_jax_package():
+    """One tiny cell of every system of the manifest, in one process."""
     code = ("import sys; from benchmark.tests.tiny import run_tiny; from benchmark.run import "
-            "forbidden_modules; run_tiny('bp_train_bf16'); run_tiny('style_gan_train_bf16'); "
+            f"forbidden_modules; [run_tiny(c) for c in {list(SYSTEMS.values())!r}]; "
             "print(forbidden_modules(), sorted({m.split('.')[0] for m in sys.modules} & "
             "{'vaeplay_torch'}))")
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
@@ -126,7 +101,12 @@ def test_the_reference_imports_nothing_of_the_port():
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             assert not {n.split(".")[0] for n in names} & banned, (path.name, names)
-    code = ("import sys, benchmark.reference.bp, benchmark.reference.style_gan; "
+    names = sorted(p.stem for p in (BENCH_DIR / "reference").glob("*.py")
+                   if p.stem != "__init__")
+    missing = sorted(set(SYSTEMS) - set(names))
+    assert not missing, [f"benchmark/reference/{s}.py is missing" for s in missing]
+    code = ("import importlib, sys; "
+            f"[importlib.import_module('benchmark.reference.' + n) for n in {names!r}]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'vaeplay_torch', 'vaeplay_tpu', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -156,7 +136,6 @@ def test_a_cell_on_the_card(cell):
     """A short run of each cell at its own size, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from benchmark.core.manifest import find_cell
     from benchmark.harness import run_cell
 
     result, lines = run_cell(find_cell(cell), 2 ** 31 + 11, 2.0, False, torch.device("cuda", 0),
